@@ -1,0 +1,58 @@
+"""Carry fitted GP state from the reference package into the port.
+
+The reference's ``GPParams``/``GPState`` hold JAX arrays; these helpers
+take anything ``numpy.asarray`` reads (JAX arrays included, without
+importing JAX here), by attribute or by mapping key, and build the port's
+tensors on ``device``. With them both packages can evaluate the posterior
+and LogEI of one fitted model.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from optuna_tpu_torch._device import resolve_device
+from optuna_tpu_torch.gp.gp import GPParams, GPState
+
+
+def _field(obj: Any, name: str) -> Any:
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _tensor(a: Any, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), dtype=dtype).to(device)
+
+
+def gp_params_from_numpy(params: Any, device: "str | torch.device | None" = None) -> GPParams:
+    """GPParams from an object or mapping with ``inv_sq_lengthscales``,
+    ``scale`` and ``noise``."""
+    dev = resolve_device(device)
+    return GPParams(
+        *(_tensor(_field(params, f), dev) for f in GPParams._fields)
+    )
+
+
+def gp_state_from_numpy(state: Any, device: "str | torch.device | None" = None) -> GPState:
+    """GPState from an object or mapping with ``params``, ``X``, ``y``,
+    ``mask``, ``L`` and ``alpha``."""
+    dev = resolve_device(device)
+    return GPState(
+        params=gp_params_from_numpy(_field(state, "params"), dev),
+        **{f: _tensor(_field(state, f), dev) for f in GPState._fields if f != "params"},
+    )
+
+
+def kernel_params_cache_from_numpy(exported: Mapping[str, Any]) -> dict[str, Any]:
+    """The reference ``GPSampler.export_fitted_state()`` dict, as one the
+    port's ``GPSampler.restore_fitted_state`` accepts: search-space
+    signatures as tuples, raw log-params as float32 numpy arrays."""
+    cache = exported["kernel_params_cache"]
+    return {
+        "kernel_params_cache": {
+            tuple(tuple(item) for item in sig): [np.asarray(p, dtype=np.float32) for p in raws]
+            for sig, raws in cache.items()
+        }
+    }

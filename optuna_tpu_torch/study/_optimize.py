@@ -1,0 +1,203 @@
+"""Trial-execution engine behind ``Study.optimize`` (PyTorch port of
+``optuna_tpu/study/_optimize.py``).
+
+Sequential only in this slice (``n_jobs=1``): one :class:`_RunBudget` hands
+out per-trial claims, and each trial runs the ask → objective → tell
+pipeline as an :class:`_Outcome` value. Heartbeats, the progress bar and the
+observability/control hooks of the reference come with later slices.
+"""
+
+from __future__ import annotations
+
+import gc
+import sys
+import threading
+import time
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Any, Callable, Sequence
+
+from optuna_tpu_torch import exceptions, logging as logging_module
+from optuna_tpu_torch.study._tell import _tell_with_warning
+from optuna_tpu_torch.trial._frozen import FrozenTrial
+from optuna_tpu_torch.trial._state import TrialState
+from optuna_tpu_torch.trial._trial import Trial
+
+if TYPE_CHECKING:
+    from optuna_tpu_torch.study.study import ObjectiveFuncType, Study
+
+_logger = logging_module.get_logger(__name__)
+
+
+class _RunBudget:
+    """Thread-safe accounting for one ``optimize`` call.
+
+    Workers call :meth:`claim` before each trial; the budget says yes until
+    the trial quota is spent, the wall-clock deadline passes, or the study's
+    stop flag is raised. Centralising the three exit conditions here means
+    the sequential and threaded paths share one definition of "done".
+    """
+
+    def __init__(self, study: "Study", n_trials: int | None, timeout: float | None) -> None:
+        self._study = study
+        self._quota = n_trials
+        self._started = time.monotonic()
+        self._deadline = None if timeout is None else self._started + timeout
+        self._granted = 0
+        self._halted = False
+        self._mutex = threading.Lock()
+
+    def halt(self) -> None:
+        """Stop handing out claims (a worker died); peers finish their
+        current trial and exit, mirroring the reference's early-abort."""
+        self._halted = True
+
+    def claim(self) -> bool:
+        if self._halted or self._study._stop_flag:
+            return False
+        if self._deadline is not None and time.monotonic() >= self._deadline:
+            return False
+        with self._mutex:
+            if self._quota is not None and self._granted >= self._quota:
+                return False
+            self._granted += 1
+            return True
+
+    def elapsed(self) -> float:
+        return time.monotonic() - self._started
+
+
+@dataclass
+class _Outcome:
+    """What happened when the objective ran: values (on success), the
+    terminal state override (pruned/failed), and the error to re-raise if
+    it isn't covered by ``catch``."""
+
+    values: float | Sequence[float] | None = None
+    state: TrialState | None = None
+    error: BaseException | None = None
+    exc_info: Any = None
+
+
+def _call_objective(func: "ObjectiveFuncType", trial: Trial) -> _Outcome:
+    try:
+        return _Outcome(values=func(trial))
+    except exceptions.TrialPruned as pruned:
+        return _Outcome(state=TrialState.PRUNED, error=pruned)
+    except (Exception, KeyboardInterrupt) as err:  # objective isolation: any crash becomes a FAIL tell
+        return _Outcome(state=TrialState.FAIL, error=err, exc_info=sys.exc_info())
+
+
+def _announce(study: "Study", frozen: FrozenTrial, outcome: _Outcome) -> None:
+    """Log the trial's terminal state the way the study logger promises."""
+    if frozen.state == TrialState.COMPLETE:
+        study._log_completed_trial(frozen)
+    elif frozen.state == TrialState.PRUNED:
+        _logger.info(f"Trial {frozen.number} pruned. {outcome.error}")
+    elif frozen.state == TrialState.FAIL:
+        reason: Any = None
+        if outcome.error is not None:
+            reason = repr(outcome.error)
+        elif frozen.system_attrs.get("fail_reason") is not None:
+            reason = frozen.system_attrs["fail_reason"]
+        if reason is not None:
+            _logger.warning(
+                f"Trial {frozen.number} failed with parameters: {frozen.params} "
+                f"because of the following error: {reason}.",
+                exc_info=outcome.exc_info,
+            )
+            if outcome.values is not None:
+                _logger.warning(
+                    f"Trial {frozen.number} failed with value {outcome.values}."
+                )
+    else:
+        raise AssertionError(f"Unexpected trial state {frozen.state}.")
+
+
+def _execute_one(
+    study: "Study",
+    func: "ObjectiveFuncType",
+    catch: tuple[type[Exception], ...],
+) -> FrozenTrial:
+    """ask → objective → tell, as one pipeline."""
+    trial = study.ask()
+    outcome = _call_objective(func, trial)
+
+    # Misbehaving objectives (wrong arity, NaNs, non-floats) downgrade to
+    # warnings via _tell_with_warning rather than aborting the whole loop.
+    try:
+        frozen = _tell_with_warning(
+            study=study,
+            trial=trial,
+            value_or_values=outcome.values,
+            state=outcome.state,
+            suppress_warning=True,
+        )
+    except Exception:  # announce-then-reraise: nothing is swallowed
+        _announce(study, study._storage.get_trial(trial._trial_id), outcome)
+        raise
+    _announce(study, frozen, outcome)
+
+    swallowed = outcome.error is not None and isinstance(outcome.error, catch)
+    if frozen.state == TrialState.FAIL and outcome.error is not None and not swallowed:
+        raise outcome.error
+    return frozen
+
+
+def _worker(
+    study: "Study",
+    func: "ObjectiveFuncType",
+    budget: _RunBudget,
+    catch: tuple[type[Exception], ...],
+    callbacks: Sequence[Callable[["Study", FrozenTrial], None]] | None,
+    gc_after_trial: bool,
+) -> None:
+    """Run trials until the shared budget refuses another claim."""
+    study._thread_local.in_optimize_loop = True
+    while budget.claim():
+        # Any escape — objective error not in `catch`, a raising callback —
+        # halts the budget before it propagates.
+        try:
+            try:
+                frozen = _execute_one(study, func, catch)
+            finally:
+                # Objective locals can pin device buffers; collecting between
+                # trials caps device/host memory growth.
+                if gc_after_trial:
+                    gc.collect()
+            for callback in callbacks or ():
+                callback(study, frozen)
+        except BaseException:  # halt-then-reraise: nothing is swallowed
+            budget.halt()
+            raise
+
+
+def _optimize(
+    study: "Study",
+    func: "ObjectiveFuncType",
+    n_trials: int | None = None,
+    timeout: float | None = None,
+    n_jobs: int = 1,
+    catch: tuple[type[Exception], ...] = (),
+    callbacks: Sequence[Callable[["Study", FrozenTrial], None]] | None = None,
+    gc_after_trial: bool = False,
+    show_progress_bar: bool = False,
+) -> None:
+    if not isinstance(catch, tuple):
+        raise TypeError(
+            f"The catch argument is of type '{type(catch).__name__}' but must be a tuple."
+        )
+    if study._thread_local.in_optimize_loop:
+        raise RuntimeError("Nested invocation of `Study.optimize` method isn't allowed.")
+    if n_jobs != 1:
+        raise NotImplementedError(
+            "optuna_tpu_torch runs trials sequentially in this slice: n_jobs must be 1."
+        )
+    if show_progress_bar:
+        raise NotImplementedError("optuna_tpu_torch has no progress bar yet.")
+
+    study._stop_flag = False
+    budget = _RunBudget(study, n_trials, timeout)
+    try:
+        _worker(study, func, budget, catch, callbacks, gc_after_trial)
+    finally:
+        study._thread_local.in_optimize_loop = False
