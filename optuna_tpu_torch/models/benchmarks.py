@@ -1,10 +1,13 @@
 """Benchmark objectives (port of ``optuna_tpu/models/benchmarks.py``).
 
-This slice carries Hartmann-20D, BASELINE.md configuration #2: Hartmann-6 on
-the first six of twenty unit-interval parameters, the other fourteen inert.
+The port carries Hartmann-20D, BASELINE.md configuration #2: Hartmann-6 on
+the first six of twenty unit-interval parameters, the other fourteen inert;
+and ZDT1-3, configuration #4's two-objective problems.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -41,3 +44,31 @@ def hartmann20(trial) -> float:
     x6 = x[:6]
     inner = np.sum(_H6_A * (x6[None, :] - _H6_P) ** 2, axis=1)
     return float(-np.sum(_H6_ALPHA * np.exp(-inner)))
+
+
+# ------------------------------------------------------------------ ZDT (2-obj)
+
+
+def _zdt_g(xs: np.ndarray) -> float:
+    return 1 + 9 * float(np.sum(xs[1:])) / (len(xs) - 1)
+
+
+def zdt1(trial, dim: int = 30):
+    xs = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(dim)])
+    g = _zdt_g(xs)
+    f1 = float(xs[0])
+    return f1, g * (1 - math.sqrt(f1 / g))
+
+
+def zdt2(trial, dim: int = 30):
+    xs = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(dim)])
+    g = _zdt_g(xs)
+    f1 = float(xs[0])
+    return f1, g * (1 - (f1 / g) ** 2)
+
+
+def zdt3(trial, dim: int = 30):
+    xs = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(dim)])
+    g = _zdt_g(xs)
+    f1 = float(xs[0])
+    return f1, g * (1 - math.sqrt(f1 / g) - (f1 / g) * math.sin(10 * math.pi * f1))

@@ -1,7 +1,7 @@
 """Samplers package (reference ``optuna_tpu/samplers/__init__.py``).
 
-GPSampler loads lazily so that importing the package does no numerical
-set-up.
+GPSampler and NSGAIISampler load lazily so that importing the package does
+no numerical set-up.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from optuna_tpu_torch.samplers._base import BaseSampler
 from optuna_tpu_torch.samplers._lazy_random_state import LazyRandomState
 from optuna_tpu_torch.samplers._random import RandomSampler
 
-__all__ = ["BaseSampler", "GPSampler", "LazyRandomState", "RandomSampler"]
+__all__ = ["BaseSampler", "GPSampler", "LazyRandomState", "NSGAIISampler", "RandomSampler"]
 
 
 def __getattr__(name: str):
@@ -18,8 +18,12 @@ def __getattr__(name: str):
         from optuna_tpu_torch.samplers._gp.sampler import GPSampler
 
         return GPSampler
+    if name == "NSGAIISampler":
+        from optuna_tpu_torch.samplers.nsgaii import NSGAIISampler
+
+        return NSGAIISampler
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__() -> list[str]:
-    return sorted(set(globals()) | {"GPSampler"})
+    return sorted(set(globals()) | {"GPSampler", "NSGAIISampler"})

@@ -379,12 +379,16 @@ class Study:
 
 
 def _default_sampler(directions: list[StudyDirection]) -> "BaseSampler":
-    """The reference defaults to TPE (NSGA-II for several objectives,
-    ``optuna_tpu/study/study.py:574-584``); neither is ported yet, and no
-    other sampler stands in for them."""
+    """NSGA-II for several objectives, as in the reference
+    (``optuna_tpu/study/study.py:574-584``). The single-objective default,
+    TPE, is not ported yet, and no other sampler stands in for it."""
+    if len(directions) > 1:
+        from optuna_tpu_torch.samplers import NSGAIISampler
+
+        return NSGAIISampler()
     raise NotImplementedError(
-        "optuna_tpu_torch has no default sampler yet: TPE is ROADMAP.md item A4 "
-        "and NSGA-II item A6. Pass sampler= explicitly (GPSampler or RandomSampler)."
+        "optuna_tpu_torch has no single-objective default sampler yet: TPE is "
+        "ROADMAP.md item A4. Pass sampler= explicitly (GPSampler or RandomSampler)."
     )
 
 

@@ -97,3 +97,51 @@ def test_create_study_without_a_sampler_names_the_roadmap_item():
 
     with pytest.raises(NotImplementedError, match="A4"):
         ot.create_study()
+
+
+MULTI_OBJECTIVE_MODULES = [
+    "optuna_tpu_torch.hypervolume",
+    "optuna_tpu_torch.hypervolume.hssp",
+    "optuna_tpu_torch.hypervolume.wfg",
+    "optuna_tpu_torch.ops.hypervolume",
+    "optuna_tpu_torch.ops.kernels.nds",
+    "optuna_tpu_torch.ops.kernels.wfg",
+    "optuna_tpu_torch.ops.pareto",
+    "optuna_tpu_torch.ops.wfg",
+    "optuna_tpu_torch.samplers._ga._base",
+    "optuna_tpu_torch.samplers.nsgaii._crossovers",
+    "optuna_tpu_torch.samplers.nsgaii._elite",
+    "optuna_tpu_torch.samplers.nsgaii._mutations",
+    "optuna_tpu_torch.samplers.nsgaii._sampler",
+]
+
+
+def test_the_multi_objective_modules_are_among_those_checked():
+    assert set(MULTI_OBJECTIVE_MODULES) <= set(_all_modules())
+
+
+@pytest.mark.parametrize("module", ["matern", "nds", "wfg"])
+def test_every_kernel_wrapper_counts_launches_and_names_its_source(module):
+    import importlib
+
+    from optuna_tpu_torch.ops.kernels import _nvcc
+
+    mod = importlib.import_module(f"optuna_tpu_torch.ops.kernels.{module}")
+    assert isinstance(mod.LAUNCHES, int)
+    assert (_nvcc.CSRC / mod._SOURCE).is_file()
+
+
+def test_multi_objective_device_policy():
+    import numpy as np
+
+    from optuna_tpu_torch.ops.pareto import non_domination_rank_np
+    from optuna_tpu_torch.ops.wfg import hypervolume_wfg_nd
+    from optuna_tpu_torch.samplers import NSGAIISampler
+
+    assert NSGAIISampler()._device is None  # resolved where a large pool is ranked
+    assert NSGAIISampler(device="cpu")._device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no GPU"):
+            non_domination_rank_np(np.zeros((4, 2)))
+        with pytest.raises(RuntimeError, match="no GPU"):
+            hypervolume_wfg_nd(np.zeros((4, 5)), np.ones(5))
