@@ -12,7 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card at its
    path's shapes, and time it, its plain version and its bound: the Matérn
    Gram (K1) also against a float64 oracle, at ragged and categorical shapes;
-   the dominance matrix (K2) and the WFG node (K3) bit for bit.
+   the dominance matrix (K2) and the WFG node step (K3's device function,
+   through its one-node kernel) bit for bit, also at frames of more than
+   16 objectives or 48 KB ((16, 17), (2048, 6)); the WFG stack kernel (K3
+   on the hypervolume path) bit for bit and node for node against the
+   plain stack loop on the card, at the 512-point root and the fronts of
+   32 and 64 that phase 8 times.
 3. A small sparse reduction on the card against the same code on the CPU.
 4. Exact engine: a GPSampler study on Hartmann-20D with 1000 seeded completed
    trials, then 3 GP asks.
@@ -22,15 +27,18 @@ Phases (any failure exits non-zero and prints no result line):
    2 and 3 rank 512 trials through the dominance kernel. The same study on
    the CPU must be identical trial for trial.
 7. The 5-objective hypervolume of a 512-point front and the leave-one-out
-   contributions of its first 64 points through the WFG stack machine and
-   its node kernel, against the host float64 oracle and the CPU.
+   contributions of its first 64 points through the WFG stack kernel (one
+   launch each), against the host float64 oracle and the CPU (equal node
+   counts).
 8. Host and card times at the reference's routing thresholds (rank at
    256/512/1024 points, WFG at fronts of 32 and 64).
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7) and read just after it; every kernel must have launched on its path.
-The line before the last is the kernel table as JSON; the last line is the
-device summary.
+6, 7) and read just after it; every kernel must have launched on its path,
+and the one-node WFG kernel not at all (the stack kernel runs every node).
+The line before the last is the kernel table as JSON (every kernel, the
+one-node WFG kernel with its 0 launches); the last line is the device
+summary.
 """
 
 from __future__ import annotations
@@ -44,7 +52,9 @@ import time
 
 import numpy as np
 
-# The kernels of the main path: wrapper module, source, TPU kernel replaced.
+# The kernels: wrapper module, its launch counter, source, TPU kernel
+# replaced. The one-node WFG kernel is the node step's check and no path
+# launches it; the stack kernel runs K3 on the hypervolume path.
 KERNELS = [
     {
         "name": "matern52_gram",
@@ -61,6 +71,13 @@ KERNELS = [
     {
         "name": "wfg_limit_filter",
         "module": "optuna_tpu_torch.ops.kernels.wfg",
+        "source": "optuna_tpu_torch/ops/kernels/csrc/wfg_limit_filter.cu",
+        "replaces": "optuna_tpu/ops/pallas/wfg.py:40",
+    },
+    {
+        "name": "wfg_stack",
+        "module": "optuna_tpu_torch.ops.kernels.wfg",
+        "counter": "STACK_LAUNCHES",
         "source": "optuna_tpu_torch/ops/kernels/csrc/wfg_limit_filter.cu",
         "replaces": "optuna_tpu/ops/pallas/wfg.py:40",
     },
@@ -150,7 +167,7 @@ def phase_build() -> float:
     from optuna_tpu_torch.ops.kernels import _nvcc
 
     t0 = time.perf_counter()
-    sources = [os.path.basename(k["source"]) for k in KERNELS]
+    sources = list(dict.fromkeys(os.path.basename(k["source"]) for k in KERNELS))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         paths = list(pool.map(_nvcc.build, sources))
     seconds = time.perf_counter() - t0
@@ -309,7 +326,7 @@ def phase_wfg_kernel(device) -> dict:
 
     from optuna_tpu_torch.ops.kernels import wfg
 
-    for n, m in ((128, 5), (512, 5), (64, 6)):
+    for n, m in ((128, 5), (512, 5), (64, 6), (1024, 8), (16, 17), (2048, 6)):
         frame = wfg_frame(n, m, seed=n * m, device=device)
         out_pts, out_msk = wfg.limit_and_filter(*frame)
         torch.cuda.synchronize()
@@ -320,10 +337,121 @@ def phase_wfg_kernel(device) -> dict:
             fail(f"wfg_limit_filter ({n}, {m}): the kernel differs from its plain version")
     n, m = 128, 5
     frame = wfg_frame(n, m, seed=n * m, device=device)
+    n_el = int(frame[2].sum())  # the kernel compares the eligible rows only
     return print_times(
         "wfg_limit_filter", (n, m), lambda: wfg.limit_and_filter(*frame), lambda: wfg.limit_and_filter_plain(*frame),
-        n_bytes=4 * (2 * n * m + 2 * m) + 2 * n, n_ops=2 * m * n * n + n * m, max_abs_err=0.0,
+        n_bytes=4 * (2 * n * m + 2 * m) + 2 * n, n_ops=2 * m * n_el * n_el + n_el * m, max_abs_err=0.0,
     )
+
+
+def unit_front(k: int | None = None) -> np.ndarray:
+    """The main path's 5-objective front (the Pareto points of 512
+    ``RandomState(0)`` points), or its first ``k`` points, mapped into the
+    unit box as ``compute_hypervolume`` maps it before the device route."""
+    from optuna_tpu_torch.hypervolume import _normalize_for_device
+    from optuna_tpu_torch.hypervolume.wfg import _pareto_filter
+
+    front = _pareto_filter(np.random.RandomState(0).uniform(0.0, 1.0, size=(512, 5)))
+    unit, _, _ = _normalize_for_device(front if k is None else front[:k], np.ones(5))
+    return unit
+
+
+def wfg_roots(unit: np.ndarray, device):
+    """The sorted root frame ``(pts0 (1, N, M), m0, ref)`` that
+    ``hypervolume_wfg_nd`` hands to ``wfg_stack`` for ``unit``."""
+    import torch
+
+    from optuna_tpu_torch.ops import wfg
+
+    pts, mask = wfg._padded(unit, np.ones(unit.shape[1]), device)
+    ref = torch.ones(unit.shape[1], device=device)
+    pts0, m0 = wfg._roots(pts[None], ref, mask[None])
+    return pts0, m0, ref
+
+
+def stack_work(pts0, m0) -> tuple[int, int]:
+    """``(nodes, compares)`` of the WFG stack from one sorted root, walked on
+    the host in numpy. A node with a pivot clamps its ``n_el`` eligible rows
+    (``n_el * M``) and compares them pairwise in every objective, ``leq``
+    and ``strict`` (``2 * M * n_el**2``); a node without one (a pop)
+    compares nothing. This is the work the stack kernel does on this data."""
+    pts, msk = pts0[0].cpu().numpy(), m0[0].cpu().numpy()
+    n, m = pts.shape
+    idx = np.arange(n)
+    stack = [[pts, msk, 0]]
+    nodes = compares = 0
+    while stack:
+        nodes += 1
+        top = stack[-1]
+        pts, msk, cur = top
+        rest = np.flatnonzero(msk[cur:])
+        if len(rest) == 0:
+            stack.pop()
+            continue
+        nxt = cur + int(rest[0])
+        top[2] = nxt + 1
+        rows = np.flatnonzero(msk & (idx > nxt))
+        k = len(rows)
+        compares += 2 * m * k * k + k * m
+        child = np.maximum(pts, pts[nxt])
+        eff = child[rows]
+        leq = np.all(eff[:, None, :] <= eff[None, :, :], axis=2)
+        strict = np.any(eff[:, None, :] < eff[None, :, :], axis=2)
+        earlier = np.arange(k)[:, None] < np.arange(k)[None, :]
+        kept = rows[~np.any(leq & (strict | earlier), axis=0)]
+        if len(kept) > 1:
+            child_msk = np.zeros(n, bool)
+            child_msk[kept] = True
+            stack.append([child, child_msk, 0])
+    return nodes, compares
+
+
+def phase_wfg_stack(device) -> dict:
+    """The stack kernel against the plain stack loop, both on the card: the
+    same bits and the same node count at the 512-point root and at the
+    fronts of 32 and 64 that phase 8 times; then its time at the root."""
+    import torch
+
+    from optuna_tpu_torch.ops.kernels import wfg
+
+    main = None
+    for label, k in (("main path, 512-point front", None), ("front 32", 32), ("front 64", 64)):
+        roots = wfg_roots(unit_front(k), device)
+        acc, nodes = wfg.wfg_stack(*roots)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_acc, plain_nodes = wfg.wfg_stack_plain(*roots)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same = torch.equal(acc, plain_acc) and torch.equal(nodes, plain_nodes)
+        print(
+            f"wfg_stack {label} {tuple(roots[0].shape)}: bit-exact {same}, {int(nodes[0])} nodes "
+            f"(plain {int(plain_nodes[0])}), hypervolume {float(acc[0]):.9f}"
+        )
+        if not same:
+            fail(f"wfg_stack {label}: the kernel differs from the plain stack loop")
+        if k is None:
+            main = (roots, int(nodes[0]), plain_s)
+    roots, nodes, plain_s = main
+    _, n, m = roots[0].shape
+    walk_nodes, compares = stack_work(*roots[:2])
+    if walk_nodes != nodes:
+        fail(f"wfg_stack: the host walk took {walk_nodes} nodes, the kernel {nodes}")
+    ms = cuda_ms(lambda: wfg.wfg_stack(*roots), reps=5)
+    row = kernel_row(
+        "wfg_stack", 0.0, ms, plain_s * 1e3,
+        n_bytes=4 * (n * m + m) + n + 4 + 8,  # root, mask and ref read once; acc and nodes written once
+        n_ops=compares,
+    )
+    print(
+        f"wfg_stack time at {tuple(roots[0].shape)}: kernel {ms:.3f} ms ({ms / nodes * 1e3:.3f} us per node; "
+        f"CUDA events around one call, median of 5), plain stack loop on the card {plain_s * 1e3:.1f} ms "
+        f"(host clock, one run); bound {row['bound_ms']:.7f} ms ({row['bound_by']}: {compares} compares, "
+        f"the sum over the {nodes} nodes of 2*M*n_el^2 + n_el*M for the n_el eligible rows each compares; "
+        f"the nodes form one dependent chain, so the kernel is bound by the latency of a node, not by this); "
+        f"no single PyTorch call computes this function"
+    )
+    return row
 
 
 def nsga_summary(study):
@@ -384,32 +512,40 @@ def phase_hv() -> float:
     from optuna_tpu_torch.hypervolume import compute_hypervolume, loo_contributions
     from optuna_tpu_torch.hypervolume.wfg import _compute_hv_recursive, _pareto_filter
     from optuna_tpu_torch.ops import wfg
+    from optuna_tpu_torch.ops.kernels import wfg as kernels
 
     front = np.random.RandomState(0).uniform(0.0, 1.0, size=(512, 5))
     ref = np.ones(5)
     runs = {}
     for label, dev in (("card", None), ("cpu", "cpu")):
         wfg.reset_stats()
+        before = kernels.STACK_LAUNCHES
         t0 = time.perf_counter()
         hv = compute_hypervolume(front, ref, device=dev)
         torch.cuda.synchronize()
-        runs[label] = (hv, time.perf_counter() - t0, dict(wfg.STATS))
+        runs[label] = (hv, time.perf_counter() - t0, dict(wfg.STATS), kernels.STACK_LAUNCHES - before)
     t0 = time.perf_counter()
     pareto = _pareto_filter(front)
     oracle = _compute_hv_recursive(pareto, ref)
     oracle_s = time.perf_counter() - t0
-    hv, card_s, stats = runs["card"]
+    hv, card_s, stats, launches = runs["card"]
+    cpu_hv, cpu_s, cpu_stats, _ = runs["cpu"]
     e_f64 = abs(hv - oracle) / oracle
-    e_cpu = abs(hv - runs["cpu"][0]) / abs(runs["cpu"][0])
+    e_cpu = abs(hv - cpu_hv) / abs(cpu_hv)
     print(
         f"hypervolume M=5, 512 points (front {len(pareto)}, bucket {wfg._pad_bucket(len(pareto))}): card {hv:.9f} "
-        f"in {card_s:.3f} s ({stats['nodes']} stack iterations, {stats['bodies']} K3 launches, "
-        f"{stats['syncs']} host syncs); CPU {runs['cpu'][0]:.9f} in {runs['cpu'][1]:.3f} s; "
-        f"host f64 oracle {oracle:.9f} in {oracle_s:.3f} s; rel err vs f64 {e_f64:.3e} (tolerance {HV_TOL_F64}), "
+        f"in {card_s:.4f} s ({stats['nodes']} stack iterations, {launches} stack launch(es), "
+        f"{stats['syncs']} host sync(s)); CPU {cpu_hv:.9f} in {cpu_s:.3f} s ({cpu_stats['nodes']} stack "
+        f"iterations); host f64 oracle {oracle:.9f} in {oracle_s:.3f} s; card faster than the oracle: "
+        f"{card_s < oracle_s}; rel err vs f64 {e_f64:.3e} (tolerance {HV_TOL_F64}), "
         f"vs CPU {e_cpu:.3e} (tolerance {HV_TOL_CPU})"
     )
     if not (math.isfinite(hv) and e_f64 <= HV_TOL_F64 and e_cpu <= HV_TOL_CPU):
         fail("5-objective hypervolume disagrees with the f64 oracle or the CPU")
+    if stats["nodes"] != cpu_stats["nodes"]:
+        fail(f"5-objective hypervolume: {stats['nodes']} stack iterations on the card, {cpu_stats['nodes']} on the CPU")
+    if launches != 1:
+        fail(f"5-objective hypervolume: the stack kernel launched {launches} times, expected 1")
 
     sub = front[:64]
     t0 = time.perf_counter()
@@ -420,19 +556,23 @@ def phase_hv() -> float:
         sub = front[:32]
         want = host_loo(sub, ref)
     wfg.reset_stats()
+    before = kernels.STACK_LAUNCHES
     t0 = time.perf_counter()
     got = loo_contributions(sub, ref)
     torch.cuda.synchronize()
     loo_s = time.perf_counter() - t0
+    launches = kernels.STACK_LAUNCHES - before
     total = _compute_hv_recursive(_pareto_filter(sub), ref)
     err = float(np.max(np.abs(got - want))) / total
     print(
-        f"leave-one-out M=5, {len(sub)} points: card {loo_s:.3f} s ({wfg.STATS['nodes']} stack iterations, "
-        f"{wfg.STATS['bodies']} K3 launches, {wfg.STATS['syncs']} host syncs); host oracle {oracle_s:.3f} s; "
+        f"leave-one-out M=5, {len(sub)} points: card {loo_s:.4f} s ({wfg.STATS['nodes']} stack iterations, "
+        f"{launches} stack launch(es), {wfg.STATS['syncs']} host sync(s)); host oracle {oracle_s:.3f} s; "
         f"max |card - oracle| / total {err:.3e} (tolerance {LOO_TOL}); {int(np.sum(got > 0))} positive"
     )
     if not (np.isfinite(got).all() and err <= LOO_TOL):
         fail("leave-one-out contributions disagree with the host oracle")
+    if launches != 1:
+        fail(f"leave-one-out: the stack kernel launched {launches} times, expected 1")
     return card_s + loo_s
 
 
@@ -470,12 +610,11 @@ def phase_thresholds() -> None:
     front = _pareto_filter(np.random.RandomState(0).uniform(0.0, 1.0, size=(512, 5)))
     for k in (32, 64):
         pts = front[:k]
-        lo = pts.min(axis=0)
-        unit = (pts - lo) / (1.0 - lo)
+        unit = unit_front(k)
         host_ms = best_of(lambda: _compute_hv_recursive(pts, np.ones(5)), reps=1)
         card_ms = best_of(lambda: hypervolume_wfg_nd(unit, np.ones(5)), reps=1)
-        parts.append(f"WFG M=5 front {k}: host {host_ms:.1f} ms, card {card_ms:.1f} ms")
-    print("routing thresholds (TPU-measured, kept): " + "; ".join(parts))
+        parts.append(f"WFG M=5 front {k}: host {host_ms:.1f} ms, card {card_ms:.2f} ms")
+    print("routing thresholds (TPU-measured, kept; rank best of 3 calls, WFG one call a side): " + "; ".join(parts))
 
 
 def seeded_study(n_history: int, seed: int = 0):
@@ -624,15 +763,17 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
-    rows = [phase_matern(device), phase_nds(device), phase_wfg_kernel(device)]
+    # The one-node WFG kernel keeps its row (the node step's check and
+    # timing) with the launches the paths made of it: none.
+    rows = [phase_matern(device), phase_nds(device), phase_wfg_kernel(device), phase_wfg_stack(device)]
     phase_small_sparse(device)
 
     def reset():
-        for mod in wrappers.values():
-            mod.LAUNCHES = 0
+        for k in KERNELS:
+            setattr(wrappers[k["name"]], k.get("counter", "LAUNCHES"), 0)
 
     def counts():
-        return {name: mod.LAUNCHES for name, mod in wrappers.items()}
+        return {k["name"]: getattr(wrappers[k["name"]], k.get("counter", "LAUNCHES")) for k in KERNELS}
 
     reset()
     exact_s = run_asks("exact engine", 1000, 3, profile_asks)
@@ -646,7 +787,7 @@ def main() -> None:
     reset()
     hv_s = phase_hv()
     hv = counts()
-    launches = {"matern52_gram": gp["matern52_gram"], "nds": nsga["nds"], "wfg_limit_filter": hv["wfg_limit_filter"]}
+    launches = {"matern52_gram": gp["matern52_gram"], "nds": nsga["nds"], "wfg_stack": hv["wfg_stack"]}
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
         f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv})"
@@ -658,6 +799,12 @@ def main() -> None:
         fail(f"matern52_gram launched {sparse_launches} times over the sparse asks")
     if launches["nds"] < 2:
         fail(f"nds launched {launches['nds']} times over NSGA-II generations 2 and 3")
+    if launches["wfg_stack"] != 2:
+        fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
+    per_node = gp["wfg_limit_filter"] + nsga["wfg_limit_filter"] + hv["wfg_limit_filter"]
+    if per_node:
+        fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
+    launches["wfg_limit_filter"] = per_node
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_thresholds()

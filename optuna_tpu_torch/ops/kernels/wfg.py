@@ -1,13 +1,24 @@
-"""One WFG stack-machine node: the hand-written CUDA kernel and its plain
-PyTorch version (port of ``optuna_tpu/ops/pallas/wfg.py``).
+"""The WFG hypervolume on the card: the hand-written CUDA kernels and their
+plain PyTorch versions (port of ``optuna_tpu/ops/pallas/wfg.py`` and of the
+``lax.while_loop`` in ``optuna_tpu/ops/wfg.py``).
 
-:func:`limit_and_filter` clamps a frame to the pivot, Pareto-filters the
-clamped eligible rows (duplicates keep the lowest index) and fills pruned
-rows at the reference point, as the reference's XLA twin
-``_limit_filter_xla`` does. For CUDA tensors it launches
-``csrc/wfg_limit_filter.cu`` or raises; for CPU tensors it runs
-:func:`limit_and_filter_plain`. Max, compares and selects only, so the two
-are bit-exact.
+Two entry points share one source, ``csrc/wfg_limit_filter.cu``, and one
+device function for the node step:
+
+* :func:`limit_and_filter` runs one node: it clamps a frame to the pivot,
+  Pareto-filters the clamped eligible rows (duplicates keep the lowest
+  index) and fills pruned rows at the reference point, as the reference's
+  XLA twin ``_limit_filter_xla`` does. Max, compares and selects only, so
+  the kernel and :func:`limit_and_filter_plain` are bit-exact.
+* :func:`wfg_stack` runs whole hypervolumes: one thread block per prepared
+  root frame walks the WFG stack from the root to the empty stack inside
+  the kernel, one launch for the whole batch. :func:`wfg_stack_plain` is
+  the same stack machine in torch ops, one node at a time; both add the
+  same float32 terms in the same order, so they give the same bits and the
+  same node counts.
+
+For CUDA tensors each wrapper launches its kernel or raises; for CPU
+tensors it runs the plain version.
 """
 
 from __future__ import annotations
@@ -19,15 +30,28 @@ import torch
 
 _SOURCE = "wfg_limit_filter.cu"
 
-#: Objectives the kernel supports (a thread keeps its row in registers).
-MAX_OBJECTIVES = 16
-#: Shared memory a frame may take: the clamped points and the eligibility
-#: bytes, within the 48 KB a block gets without opting in (less the
-#: kernel's own static buffer).
-MAX_FRAME_BYTES = 48 * 1024 - 256
-
-#: Kernel launches since the last reset; counts only real launches.
+#: Launches of the node kernel (:func:`limit_and_filter`) since the last reset.
 LAUNCHES = 0
+#: Launches of the stack kernel (:func:`wfg_stack`) since the last reset.
+STACK_LAUNCHES = 0
+
+#: Bodies of :func:`wfg_stack_plain` between two host reads of ``depth``.
+NODES_PER_SYNC = 32
+
+#: Counters of the stack machine since the last reset: ``nodes`` (stack
+#: iterations), ``bodies`` (node steps run: whole chunks of
+#: :data:`NODES_PER_SYNC` in the plain loop, one per node in the kernel) and
+#: ``syncs`` (host reads: one per chunk in the plain loop, one per
+#: :func:`wfg_stack` call on the card).
+STATS = {"nodes": 0, "bodies": 0, "syncs": 0}
+
+#: Scratch one stack launch may take; a larger batch is split into launches.
+MAX_SCRATCH_BYTES = 1 << 30
+
+
+def reset_stats() -> None:
+    for key in STATS:
+        STATS[key] = 0
 
 
 def limit_and_filter_plain(
@@ -46,50 +70,157 @@ def limit_and_filter_plain(
     return torch.where(child_msk[:, None], child, ref[None, :]), child_msk
 
 
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """(1,) index of the first True of ``mask`` (0 when there is none)."""
+    return torch.argmax(mask.to(torch.uint8)).reshape(1)
+
+
+def _prod_last(x: torch.Tensor) -> torch.Tensor:
+    """Product over the last dim, left to right: the same rounding on every
+    device, where ``torch.prod``'s reduction order is the backend's."""
+    out = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        out = out * x[..., k]
+    return out
+
+
+def _row(stack: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """``stack[at]`` for a (1,) index tensor, with no host read."""
+    return stack.index_select(0, at)[0]
+
+
+def _stack_plain_one(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stack machine of one sorted root frame, one node step a body.
+
+    The whole stack lives on the tensors' device: ``s_pts (N+2, N, M)``,
+    ``s_msk``, ``s_cur``, ``s_sign`` and the 0-d ``depth`` and ``acc``. The
+    body has no Python branch on a tensor value and no host read: it is
+    written with ``torch.where`` and index tensors, as the reference's
+    ``lax.while_loop`` body is. At ``depth == 0`` it changes nothing (its
+    writes go to a spare frame, ``N + 1``). The host reads ``depth`` once
+    every :data:`NODES_PER_SYNC` bodies.
+    """
+    n, m = pts0.shape
+    dev = pts0.device
+    spare = n + 1  # frame that absorbs the writes of a body run at depth 0
+    s_pts = torch.zeros((n + 2, n, m), dtype=pts0.dtype, device=dev)
+    s_pts[0] = pts0
+    s_msk = torch.zeros((n + 2, n), dtype=torch.bool, device=dev)
+    s_msk[0] = m0
+    s_cur = torch.zeros((n + 2,), dtype=torch.int64, device=dev)
+    s_sign = torch.zeros((n + 2,), dtype=pts0.dtype, device=dev)
+    s_sign[0] = 1.0
+    idx = torch.arange(n, device=dev)
+    depth = torch.ones((), dtype=torch.int64, device=dev)
+    acc = torch.zeros((), dtype=pts0.dtype, device=dev)
+    nodes = torch.zeros((), dtype=torch.int64, device=dev)
+
+    while True:
+        for _ in range(NODES_PER_SYNC):
+            active = depth > 0
+            top = torch.clamp(depth - 1, min=0).reshape(1)
+            pts = _row(s_pts, top)
+            msk = _row(s_msk, top)
+            sign = _row(s_sign, top)
+            cur = _row(s_cur, top)
+            remaining = msk & (idx >= cur)
+            has_more = torch.any(remaining) & active
+            nxt = _first_true(remaining)
+            p = _row(pts, nxt)
+
+            child_pts, child_msk = limit_and_filter_plain(pts, p, msk & (idx > nxt), ref)
+            n_child = torch.sum(child_msk)
+            # The pivot's inclusive volume, and a one-point child's, which is
+            # folded in place instead of pushed.
+            only = _row(child_pts, _first_true(child_msk))
+            inc, inc_only = _prod_last(ref - torch.stack([p, only]))
+            fold = torch.where(n_child == 1, sign * inc_only, 0.0)
+            acc = acc + torch.where(has_more, sign * inc - fold, 0.0)
+
+            do_push = has_more & (n_child > 1)
+            s_cur.index_copy_(0, top, torch.where(has_more, nxt + 1, cur.reshape(1)))
+            slot = torch.where(active, depth, spare).reshape(1)
+            s_pts.index_copy_(0, slot, child_pts[None])
+            s_msk.index_copy_(0, slot, (child_msk & do_push)[None])
+            s_cur.index_copy_(0, slot, torch.zeros_like(slot))
+            s_sign.index_copy_(0, slot, -sign.reshape(1))
+            nodes = nodes + active.to(torch.int64)
+            depth = torch.where(has_more, depth + do_push.to(torch.int64), depth - active.to(torch.int64))
+        STATS["bodies"] += NODES_PER_SYNC
+        STATS["syncs"] += 1
+        if int(depth) == 0:
+            break
+    return acc, nodes
+
+
+def wfg_stack_plain(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(acc (B,), nodes (B,))``: the torch stack machine once per batch row."""
+    accs, counts = [], []
+    for b in range(pts0.shape[0]):
+        acc, nodes = _stack_plain_one(pts0[b], m0[b], ref)
+        accs.append(acc)
+        counts.append(nodes)
+    nodes = torch.stack(counts)
+    STATS["nodes"] += int(nodes.sum())
+    return torch.stack(accs), nodes
+
+
 @functools.cache
-def _launcher():
-    """The built kernel's C entry point, with its argument types declared."""
+def _library():
+    """The built library, with its C entry points' argument types declared."""
     from optuna_tpu_torch.ops.kernels import _nvcc
 
-    fn = _nvcc.load(_SOURCE).wfg_limit_filter_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _nvcc.load(_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wfg_limit_filter_launch.argtypes = [ptr] * 7 + [i32] * 2 + [ptr]
+    lib.wfg_limit_filter_launch.restype = i32
+    lib.wfg_node_work_bytes.argtypes = [i32, i32]
+    lib.wfg_node_work_bytes.restype = ctypes.c_longlong
+    lib.wfg_stack_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.wfg_stack_launch.restype = i32
+    lib.wfg_stack_scratch_bytes.argtypes = [i32, i32]
+    lib.wfg_stack_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_float32(fn: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}.")
+
+
+def _check_device(fn: str, dev: torch.device, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected {dev}.")
+
+
+def _scratch(n_bytes: int, dev: torch.device) -> torch.Tensor:
+    return torch.empty(max(1, n_bytes), dtype=torch.uint8, device=dev)
 
 
 def _launch(pts, p, eligible, ref) -> tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
     dev = pts.device
-    for name, t in (("p", p), ("eligible", eligible), ("ref", ref)):
-        if t.device != dev:
-            raise ValueError(f"limit_and_filter: {name} is on {t.device}, pts on {dev}.")
-    for name, t in (("pts", pts), ("p", p), ("ref", ref)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"limit_and_filter: {name} must be float32, got {t.dtype}.")
+    _check_device("limit_and_filter", dev, p=p, eligible=eligible, ref=ref)
+    _check_float32("limit_and_filter", pts=pts, p=p, ref=ref)
     if eligible.dtype != torch.bool:
         raise TypeError(f"limit_and_filter: eligible must be bool, got {eligible.dtype}.")
-    if pts.dim() != 2:
-        raise ValueError(f"limit_and_filter: pts {tuple(pts.shape)} must be (n, m).")
+    if pts.dim() != 2 or pts.shape[0] == 0:
+        raise ValueError(f"limit_and_filter: pts {tuple(pts.shape)} must be (n, m) with n > 0.")
     n, m = pts.shape
     if p.shape != (m,) or ref.shape != (m,) or eligible.shape != (n,):
         raise ValueError("limit_and_filter: p and ref must be (m,), eligible (n,).")
-    frame_bytes = 4 * n * m + n
-    if m > MAX_OBJECTIVES or frame_bytes > MAX_FRAME_BYTES:
-        raise ValueError(
-            f"limit_and_filter: a frame of ({n}, {m}) is outside what the kernel supports: "
-            f"at most {MAX_OBJECTIVES} objectives and 4*n*m + n <= {MAX_FRAME_BYTES} bytes "
-            f"of shared memory (n = 1024 at m = 8); got {frame_bytes}."
-        )
-    pc, p_c, rc = pts.contiguous(), p.contiguous(), ref.contiguous()
-    el = eligible.contiguous()
+    pc, p_c, rc, el = pts.contiguous(), p.contiguous(), ref.contiguous(), eligible.contiguous()
     out_pts = torch.empty((n, m), dtype=torch.float32, device=dev)
     out_msk = torch.empty((n,), dtype=torch.bool, device=dev)
-    fn = _launcher()
+    lib = _library()
     with torch.cuda.device(dev):
+        work = _scratch(lib.wfg_node_work_bytes(n, m), dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
+        err = lib.wfg_limit_filter_launch(
             pc.data_ptr(), p_c.data_ptr(), el.data_ptr(), rc.data_ptr(),
-            out_pts.data_ptr(), out_msk.data_ptr(), n, m, stream,
+            out_pts.data_ptr(), out_msk.data_ptr(), work.data_ptr(), n, m, stream,
         )
     if err != 0:
         raise RuntimeError(f"limit_and_filter kernel launch failed: CUDA error {err}.")
@@ -111,3 +242,59 @@ def limit_and_filter(
     if pts.device.type == "cpu":
         return limit_and_filter_plain(pts, p, eligible, ref)
     raise ValueError(f"limit_and_filter: unsupported device {pts.device}.")
+
+
+def _launch_stack(pts0, m0, ref) -> tuple[torch.Tensor, torch.Tensor]:
+    global STACK_LAUNCHES
+    dev = pts0.device
+    _check_device("wfg_stack", dev, m0=m0, ref=ref)
+    _check_float32("wfg_stack", pts0=pts0, ref=ref)
+    if m0.dtype != torch.bool:
+        raise TypeError(f"wfg_stack: m0 must be bool, got {m0.dtype}.")
+    if pts0.dim() != 3 or pts0.shape[1] == 0:
+        raise ValueError(f"wfg_stack: pts0 {tuple(pts0.shape)} must be (B, N, M) with N > 0.")
+    b, n, m = pts0.shape
+    if m0.shape != (b, n) or ref.shape != (m,):
+        raise ValueError("wfg_stack: m0 must be (B, N) and ref (M,).")
+    if not (pts0.is_contiguous() and m0.is_contiguous() and ref.is_contiguous()):
+        raise ValueError("wfg_stack: pts0, m0 and ref must be contiguous.")
+    acc = torch.empty((b,), dtype=torch.float32, device=dev)
+    nodes = torch.empty((b,), dtype=torch.int64, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        per_block = int(lib.wfg_stack_scratch_bytes(n, m))
+        chunk = max(1, MAX_SCRATCH_BYTES // per_block)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo in range(0, b, chunk):
+            hi = min(b, lo + chunk)
+            scratch = _scratch(per_block * (hi - lo), dev)
+            err = lib.wfg_stack_launch(
+                pts0[lo:hi].data_ptr(), m0[lo:hi].data_ptr(), ref.data_ptr(), acc[lo:hi].data_ptr(),
+                nodes[lo:hi].data_ptr(), scratch.data_ptr(), hi - lo, n, m, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"wfg_stack kernel launch failed: CUDA error {err}.")
+            STACK_LAUNCHES += 1
+    total = int(nodes.sum())  # the one host read of the call
+    STATS["nodes"] += total
+    STATS["bodies"] += total
+    STATS["syncs"] += 1
+    return acc, nodes
+
+
+def wfg_stack(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole WFG hypervolumes of B prepared root frames: ``(acc (B,), nodes (B,))``.
+
+    ``pts0`` (B, N, M) float32 points sorted ascending in objective 0 with
+    rows off the root mask at ``ref``, ``m0`` (B, N) bool root masks,
+    ``ref`` (M,) reference point. ``acc`` is each frame's hypervolume,
+    ``nodes`` its stack iterations. The CUDA kernel for CUDA tensors (one
+    block per frame, one launch per batch of at most
+    :data:`MAX_SCRATCH_BYTES` of stack scratch), the plain version for CPU
+    tensors.
+    """
+    if pts0.device.type == "cuda":
+        return _launch_stack(pts0, m0, ref)
+    if pts0.device.type == "cpu":
+        return wfg_stack_plain(pts0, m0, ref)
+    raise ValueError(f"wfg_stack: unsupported device {pts0.device}.")

@@ -8,8 +8,13 @@ functions of the port against the reference, on the CPU.
   ``lax.while_loop`` in the same float32 operations: rel 1e-6 against the
   XLA twin, and the reference's own bar, rel 5e-4, against the host f64
   oracle.
+* ``wfg_stack_plain`` (what ``wfg_stack`` runs for CPU tensors) gives each
+  batch row the bits and node count of a separate hypervolume, and the
+  batched leave-one-out equals the reference's.
 * The routed functions are held to the reference's routed functions with
   the reference's tolerances (``tests/test_hypervolume.py``).
+* Tests marked ``cuda`` hold both CUDA kernels to their plain versions on
+  the card: the node step and the stack bit for bit, with equal node counts.
 """
 
 from __future__ import annotations
@@ -193,7 +198,11 @@ def test_host_routes_need_no_device_and_match_the_reference():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(128, 5), (512, 5), (64, 6), (1024, 8), (16, 2)])
+@pytest.mark.parametrize(
+    # Past 16 objectives and 48 KB of frame: (2048, 8), (16, 17), (2048, 6);
+    # (4096, 17) takes the global working-space path.
+    "n,m", [(128, 5), (512, 5), (64, 6), (1024, 8), (16, 2), (2048, 8), (16, 17), (2048, 6), (4096, 17)]
+)
 def test_kernel_equals_plain_on_the_card(cuda_device, n, m):  # noqa: F811
     frame = _port_frame(*_frame(n, m, seed=n * m), device=cuda_device)
     before = kwfg.LAUNCHES
@@ -204,9 +213,174 @@ def test_kernel_equals_plain_on_the_card(cuda_device, n, m):  # noqa: F811
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+
+
+def _batch_roots(fronts, m, n_pad, device="cpu"):
+    """Sorted root frames of several fronts, each padded to ``n_pad`` rows at
+    the reference point ``ones(m)``, as ``wfg._padded`` pads one."""
+    pts = np.ones((len(fronts), n_pad, m), np.float32)
+    mask = np.zeros((len(fronts), n_pad), bool)
+    for b, front in enumerate(fronts):
+        pts[b, : len(front)] = front
+        mask[b, : len(front)] = True
+    ref = torch.ones(m, device=device)
+    pts0, m0 = wfg._roots(torch.as_tensor(pts, device=device), ref, torch.as_tensor(mask, device=device))
+    return pts0, m0, ref
+
+
+@pytest.mark.parametrize("m", [5, 6])
+@pytest.mark.parametrize("b", [1, 5])
+def test_wfg_stack_plain_batch_rows_equal_separate_hypervolumes(b, m):
+    rng = np.random.RandomState(10 * b + m)
+    fronts = [rng.uniform(0, 1, size=(int(rng.randint(3, 15)), m)) for _ in range(b)]
+    pts0, m0, ref = _batch_roots(fronts, m, 16)
+    wfg.reset_stats()
+    acc, nodes = kwfg.wfg_stack_plain(pts0, m0, ref)
+    assert acc.shape == (b,) and nodes.shape == (b,)
+    assert wfg.STATS["nodes"] == int(nodes.sum())
+    for i, front in enumerate(fronts):
+        wfg.reset_stats()
+        assert float(acc[i]) == wfg.hypervolume_wfg_nd(front, np.ones(m), device="cpu")
+        assert int(nodes[i]) == wfg.STATS["nodes"]
+
+
+@pytest.mark.parametrize("n_pad", [32, 64])
+def test_wfg_stack_plain_is_independent_of_the_padding(n_pad):
+    # The roots put the masked rows first, so a wider bucket runs the same
+    # nodes on the same rows: the card's global working-space path is
+    # checked against a narrow bucket on this basis.
+    front = np.random.RandomState(4).uniform(0, 1, size=(9, 6))
+    acc16, nodes16 = kwfg.wfg_stack_plain(*_batch_roots([front], 6, 16))
+    acc, nodes = kwfg.wfg_stack_plain(*_batch_roots([front], 6, n_pad))
+    assert torch.equal(acc, acc16) and torch.equal(nodes, nodes16)
+
+
+def test_stack_wrapper_runs_the_plain_version_for_cpu_tensors_without_a_launch():
+    roots = _batch_roots([np.random.RandomState(2).uniform(0, 1, size=(6, 5))], 5, 16)
+    before = kwfg.STACK_LAUNCHES
+    got = kwfg.wfg_stack(*roots)
+    assert kwfg.STACK_LAUNCHES == before
+    want = kwfg.wfg_stack_plain(*roots)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,m", [(12, 5), (20, 6), (24, 5)])
+def test_batched_loo_equals_the_reference_with_a_duplicate_a_dominated_and_an_outside_point(n, m):
+    pts = _front(n, m, seed=300 + n + m, extras=True)
+    ref = np.ones(m)
+    got = wfg.wfg_loo_nd(pts, ref, device="cpu")
+    np.testing.assert_allclose(got, ref_wfg.wfg_loo_nd(pts, ref), rtol=1e-5, atol=1e-7)
+    total = host_hv(pts, ref)
+    want = np.array([max(total - host_hv(np.delete(pts, i, axis=0), ref), 0.0) for i in range(len(pts))])
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=1e-6)
+    assert got[0] == 0.0 and np.all(got[-3:] == 0.0)  # the duplicate pair, the dominated, the outside
+
+
+def test_batched_loo_rows_equal_separate_hypervolumes_bit_for_bit():
+    pts, mask = wfg._padded(_front(14, 5, seed=7, extras=True), np.ones(5), torch.device("cpu"))
+    ref = torch.ones(5)
+    got = wfg.wfg_loo_contributions(pts, ref, mask)
+    inside = mask & torch.all(pts < ref, dim=1)
+    front = wfg._masked_pareto(pts, inside)
+    idx = torch.arange(len(pts))
+    for i in range(len(pts)):
+        if not front[i]:
+            assert float(got[i]) == 0.0
+            continue
+        covered = wfg.hypervolume_wfg(torch.maximum(pts, pts[i]), ref, inside & (idx != i))
+        assert torch.equal(got[i], torch.clamp(kwfg._prod_last(ref - pts[i]) - covered, min=0.0))
+
+
+@pytest.mark.parametrize("rows_per_step", [1, 3])
+def test_roots_in_several_prelude_steps_equal_one_step(monkeypatch, rows_per_step):
+    # The leave-one-out's limited frames as wfg_loo_contributions builds them.
+    pts, mask = wfg._padded(_front(20, 5, seed=8, extras=True), np.ones(5), torch.device("cpu"))
+    ref = torch.ones(5)
+    n, m = pts.shape
+    idx = torch.arange(n)
+    limited = torch.maximum(pts[None, :, :], pts[:, None, :])
+    lmask = mask[None, :] & (idx[None, :] != idx[:, None])
+    one = wfg._roots(limited, ref, lmask)
+    monkeypatch.setattr(wfg, "_PRELUDE_ELEMENTS", rows_per_step * n * n * m)
+    steps = wfg._roots(limited, ref, lmask)
+    assert torch.equal(steps[0], one[0]) and torch.equal(steps[1], one[1])
+    assert steps[0].is_contiguous() and steps[1].is_contiguous()
+
+
+def test_seventeen_objectives_on_the_cpu_equal_the_reference_and_the_host_oracle():
+    pts = np.random.RandomState(1).uniform(0, 1, size=(16, 17))
+    ref = np.ones(17)
+    got = wfg.hypervolume_wfg_nd(pts, ref, device="cpu")
+    assert got == pytest.approx(ref_wfg.hypervolume_wfg_nd(pts, ref), rel=1e-6)
+    assert got == pytest.approx(host_hv(pts, ref), rel=5e-4)
+
+
 @pytest.mark.cuda
-def test_kernel_raises_outside_what_it_supports(cuda_device):  # noqa: F811
-    with pytest.raises(ValueError, match="outside what the kernel supports"):
-        kwfg.limit_and_filter(*_port_frame(*_frame(2048, 8, seed=0), device=cuda_device))
-    with pytest.raises(ValueError, match="outside what the kernel supports"):
-        kwfg.limit_and_filter(*_port_frame(*_frame(16, 17, seed=0), device=cuda_device))
+@pytest.mark.parametrize("n,m", [(16, 5), (64, 5), (40, 6), (20, 17)])
+def test_stack_kernel_equals_plain_on_the_card(cuda_device, n, m):  # noqa: F811
+    pts = _front(n, m, seed=n + m, extras=True)
+    P, M = wfg._padded(pts, np.ones(m), cuda_device)
+    ref = torch.ones(m, device=cuda_device)
+    pts0, m0 = wfg._roots(P[None], ref, M[None])
+    before, node_before = kwfg.STACK_LAUNCHES, kwfg.LAUNCHES
+    acc, nodes = kwfg.wfg_stack(pts0, m0, ref)
+    torch.cuda.synchronize()
+    assert kwfg.STACK_LAUNCHES == before + 1 and kwfg.LAUNCHES == node_before
+    want_acc, want_nodes = kwfg.wfg_stack_plain(pts0, m0, ref)
+    assert torch.equal(acc, want_acc) and torch.equal(nodes, want_nodes)
+
+    P, M = wfg._padded(pts[:12], np.ones(m), cuda_device)
+    before = kwfg.STACK_LAUNCHES
+    loo = wfg.wfg_loo_contributions(P, ref, M)
+    torch.cuda.synchronize()
+    assert kwfg.STACK_LAUNCHES == before + 1
+    assert torch.equal(loo.cpu(), wfg.wfg_loo_contributions(P.cpu(), ref.cpu(), M.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks_per_launch", [1, 3])
+def test_stack_kernel_split_over_launches_equals_one_launch(monkeypatch, cuda_device, blocks_per_launch):  # noqa: F811
+    rng = np.random.RandomState(11)
+    fronts = [rng.uniform(0, 1, size=(int(rng.randint(3, 15)), 5)) for _ in range(7)]
+    roots = _batch_roots(fronts, 5, 16, device=cuda_device)
+    one = kwfg.wfg_stack(*roots)
+    pts, mask = wfg._padded(_front(14, 5, seed=12, extras=True), np.ones(5), cuda_device)
+    loo_one = wfg.wfg_loo_contributions(pts, roots[2], mask)
+    torch.cuda.synchronize()
+
+    per_block = int(kwfg._library().wfg_stack_scratch_bytes(16, 5))
+    monkeypatch.setattr(kwfg, "MAX_SCRATCH_BYTES", blocks_per_launch * per_block)
+    before = kwfg.STACK_LAUNCHES
+    split = kwfg.wfg_stack(*roots)
+    torch.cuda.synchronize()
+    assert kwfg.STACK_LAUNCHES == before + -(-7 // blocks_per_launch)  # at least 3 launches
+    assert torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
+    before = kwfg.STACK_LAUNCHES
+    loo_split = wfg.wfg_loo_contributions(pts, roots[2], mask)
+    torch.cuda.synchronize()
+    assert kwfg.STACK_LAUNCHES == before + -(-16 // blocks_per_launch)
+    assert torch.equal(loo_split, loo_one)
+    plain = kwfg.wfg_stack_plain(*(t.cpu() for t in roots))
+    assert torch.equal(split[0].cpu(), plain[0]) and torch.equal(split[1].cpu(), plain[1])
+
+
+@pytest.mark.cuda
+def test_stack_kernel_global_working_space_equals_the_shared_memory_path(cuda_device):  # noqa: F811
+    # At (2048, 17) the working frame exceeds the shared memory a block can
+    # have; the kernel keeps it in global scratch instead.
+    front = np.random.RandomState(5).uniform(0, 1, size=(8, 17))
+    narrow = kwfg.wfg_stack(*_batch_roots([front], 17, 16, device=cuda_device))
+    wide = kwfg.wfg_stack(*_batch_roots([front], 17, 2048, device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(narrow[0], wide[0]) and torch.equal(narrow[1], wide[1])
+    plain = kwfg.wfg_stack_plain(*_batch_roots([front], 17, 16))
+    assert torch.equal(narrow[0].cpu(), plain[0]) and torch.equal(narrow[1].cpu(), plain[1])
+
+
+@pytest.mark.cuda
+def test_hypervolume_at_seventeen_objectives_on_the_card(cuda_device):  # noqa: F811
+    pts = np.random.RandomState(1).uniform(0, 1, size=(16, 17))
+    ref = np.ones(17)
+    got = wfg.hypervolume_wfg_nd(pts, ref, device=cuda_device)
+    assert got == wfg.hypervolume_wfg_nd(pts, ref, device="cpu")
+    assert got == pytest.approx(host_hv(pts, ref), rel=5e-4)
