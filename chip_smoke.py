@@ -11,10 +11,14 @@ Phases (any failure exits non-zero and prints no result line):
    (one ``nvcc`` per source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card at its
    path's shapes, and time it, its plain version and its bound: the Matérn
-   Gram (K1) also against a float64 oracle, at ragged and categorical shapes;
-   the dominance matrix (K2) and the WFG node step (K3's device function,
-   through its one-node kernel) bit for bit, also at frames of more than
-   16 objectives or 48 KB ((16, 17), (2048, 6)); the WFG stack kernel (K3
+   Gram (K1) also against a float64 oracle, at ragged and categorical
+   shapes, beside its launch and output-write floors; the dominance matrix
+   (K2's compare) and the WFG node step (K3's device function, through its
+   one-node kernel) bit for bit, also at frames of more than 16 objectives
+   or 48 KB ((16, 17), (2048, 6)); the ranking kernels (K2 and its peeling
+   loop on the NSGA-II path) rank for rank and front for front against the
+   plain peeling loop, at (512, 2), (640, 5) with padding, (128, 3),
+   (96, 40), a chain of 2048 fronts and (8192, 2); the WFG stack kernel (K3
    on the hypervolume path) bit for bit and node for node against the
    plain stack loop on the card, at the 512-point root and the fronts of
    32 and 64 that phase 8 times.
@@ -24,7 +28,7 @@ Phases (any failure exits non-zero and prints no result line):
 5. Sparse engine: the same with 4000 trials and 8 GP asks, each through the
    SGPR program and its CUDA Matérn Gram (m = 256, N bucket 4096).
 6. NSGA-II on ZDT1 (30 variables, population 256, 1024 trials): generations
-   2 and 3 rank 512 trials through the dominance kernel. The same study on
+   2 and 3 rank 512 trials through the ranking kernels. The same study on
    the CPU must be identical trial for trial.
 7. The 5-objective hypervolume of a 512-point front and the leave-one-out
    contributions of its first 64 points through the WFG stack kernel (one
@@ -35,10 +39,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
 6, 7) and read just after it; every kernel must have launched on its path,
-and the one-node WFG kernel not at all (the stack kernel runs every node).
-The line before the last is the kernel table as JSON (every kernel, the
-one-node WFG kernel with its 0 launches); the last line is the device
-summary.
+and the dominance-matrix and one-node WFG kernels not at all (the ranking
+kernels rank, the stack kernel runs every node). The line before the last
+is the kernel table as JSON (every kernel, the two check kernels with their
+0 launches); the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -53,8 +57,10 @@ import time
 import numpy as np
 
 # The kernels: wrapper module, its launch counter, source, TPU kernel
-# replaced. The one-node WFG kernel is the node step's check and no path
-# launches it; the stack kernel runs K3 on the hypervolume path.
+# replaced. The dominance-matrix kernel and the one-node WFG kernel are
+# checks and no path launches them; the ranking kernels run K2 (with the
+# reference's peeling loop, optuna_tpu/ops/pareto.py:56) on the NSGA-II
+# path, the stack kernel K3 on the hypervolume path.
 KERNELS = [
     {
         "name": "matern52_gram",
@@ -65,6 +71,13 @@ KERNELS = [
     {
         "name": "nds",
         "module": "optuna_tpu_torch.ops.kernels.nds",
+        "source": "optuna_tpu_torch/ops/kernels/csrc/dominance.cu",
+        "replaces": "optuna_tpu/ops/pallas/nds.py:24",
+    },
+    {
+        "name": "nds_rank",
+        "module": "optuna_tpu_torch.ops.kernels.nds",
+        "counter": "RANK_LAUNCHES",
         "source": "optuna_tpu_torch/ops/kernels/csrc/dominance.cu",
         "replaces": "optuna_tpu/ops/pallas/nds.py:24",
     },
@@ -198,11 +211,12 @@ def kernel_row(name: str, max_abs_err: float, ms: float, plain_ms: float, n_byte
 
 
 def print_times(
-    name: str, shape, fn, plain_fn, n_bytes: int, n_ops: int, max_abs_err: float, unit: str = "compares"
+    name: str, shape, fn, plain_fn, n_bytes: int, n_ops: int, max_abs_err: float, unit: str = "compares",
+    extra: str = "",
 ) -> dict:
     """Time a kernel and its plain version (device time from a CUDA graph,
-    and per call with host overhead), print them beside the bound, and
-    return the kernel's row of the table."""
+    and per call with host overhead), print them beside the bound (and
+    ``extra``), and return the kernel's row of the table."""
     ms = graph_ms(fn)
     plain_ms = graph_ms(plain_fn)
     call_ms = cuda_ms(fn)
@@ -212,9 +226,25 @@ def print_times(
         f"{name} time at {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms "
         f"(device time, CUDA graph); per call with host overhead: kernel {call_ms:.4f} ms, "
         f"plain {plain_call_ms:.4f} ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
-        f"{n_bytes} B, {n_ops} {unit}); no single PyTorch call computes this function"
+        f"{n_bytes} B, {n_ops} {unit}){extra}; no single PyTorch call computes this function"
     )
     return row
+
+
+def device_kernels(fn, calls: int = 10) -> int:
+    """Kernels one call of ``fn`` runs on the card: ``torch.profiler``'s count
+    over ``calls`` calls, divided by ``calls`` and rounded (a trace can miss
+    its first kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return round(device_profile(prof)[1] / calls)
 
 
 def matern_inputs(n1, n2, d, n_cat, seed, device):
@@ -263,12 +293,24 @@ def phase_matern(device) -> dict:
 
     n1, n2, d = 256, 4096, 20
     args = matern_inputs(n1, n2, d, 0, seed=n1 + n2 + d, device=device)
+    per_call = device_kernels(lambda: matern.matern52_gram(*args))
+    if per_call > 1:
+        fail(f"matern52_gram: one call ran {per_call} kernels on the card, expected 1")
+    # Yardsticks the port never calls: the kernel on one element (the
+    # launch floor) and writing the output once.
+    tiny = matern_inputs(1, 1, d, 0, seed=1, device=device)
+    launch_floor = graph_ms(lambda: matern.matern52_gram(*tiny))
+    write_floor = graph_ms(lambda: torch.empty(n1, n2, device=device).zero_())
     return print_times(
         "matern52_gram", (n1, n2, d), lambda: matern.matern52_gram(*args),
         lambda: matern.matern52_gram_plain(*args),
         n_bytes=4 * (n1 * d + n2 * d + d + 1 + n2 * n1) + d,  # inputs read once, output written once
         n_ops=n1 * n2 * (3 * d + 9),  # sub, mul, fma per dim; sqrt, exp and 7 flops per element
         max_abs_err=worst_plain, unit="flops",
+        extra=(
+            f"; floors (device time, CUDA graph): launch {launch_floor:.5f} ms (the kernel at (1, 1, {d})), "
+            f"write {write_floor:.5f} ms (torch.empty({n1}, {n2}).zero_()); {per_call} kernel(s) a call"
+        ),
     )
 
 
@@ -305,6 +347,74 @@ def phase_nds(device) -> dict:
         "nds", (n, m), lambda: nds.dominance_matrix(v), lambda: nds.dominance_matrix_plain(v),
         n_bytes=4 * (n * m + n * n), n_ops=2 * m * n * n, max_abs_err=0.0,
     )
+
+
+def rank_cases(device) -> list:
+    """``(label, values, mask)`` of the ranking checks: ordinals with ties,
+    duplicate rows and padded rows as ``non_domination_rank_np`` makes them,
+    and a chain of 2048 fronts in shuffled row order."""
+    import torch
+
+    cases = []
+    for label, n, m, n_pad in (
+        ("main path", 512, 2, 512), ("ties, duplicates, padding", 600, 5, 640), ("one tile", 128, 3, 128),
+        ("40 objectives", 96, 40, 96), ("large N", 8192, 2, 8192),
+    ):
+        mask = torch.zeros(n_pad, device=device)
+        mask[:n] = 1.0
+        cases.append((label, nds_inputs(n, m, n_pad, seed=n + m, device=device), mask))
+    order = np.random.default_rng(7).permutation(2048).astype(np.float32)
+    chain = torch.as_tensor(np.stack([order, order], axis=1), device=device)
+    cases.insert(4, ("chain of 2048 fronts", chain, torch.ones(2048, device=device)))
+    return cases
+
+
+def phase_nds_rank(device) -> dict:
+    """The ranking kernels against the plain peeling loop, both on the card:
+    the same ranks and front count at every case, and their times."""
+    import torch
+
+    from optuna_tpu_torch.ops.kernels import nds
+
+    main = None
+    for label, v, mask in rank_cases(device):
+        n, m = v.shape
+        out = nds.rank_fronts(v, mask)
+        torch.cuda.synchronize()
+        plain = nds.rank_fronts_plain(v, mask)
+        same = torch.equal(out, plain)
+        fronts = int(out[n])
+        ms = graph_ms(lambda: nds.rank_fronts(v, mask))
+        plain_ms = cuda_ms(lambda: nds.rank_fronts_plain(v, mask), reps=5)
+        n_bytes, n_ops = 4 * (n * m + n) + 4 * (n + 1), 2 * m * n * n  # values and mask in, ranks and count out
+        row = kernel_row("nds_rank", 0.0, ms, plain_ms, n_bytes, n_ops)
+        route = "shared" if nds.ranks_in_shared(n, device) else "global"
+        print(
+            f"nds_rank {label} ({n}, {m}): bit-exact {same}, {fronts} fronts (plain {int(plain[n])}), "
+            f"matrix in {route} memory; kernel {ms:.5f} ms (device time, CUDA graph, 2 launches), "
+            f"{ms / max(fronts, 1) * 1e3:.3f} us a front; plain loop {plain_ms:.3f} ms (CUDA events, "
+            f"host syncs inside); bound {row['bound_ms']:.7f} ms ({row['bound_by']}: {n_bytes} B, {n_ops} compares)"
+        )
+        if not same:
+            fail(f"nds_rank {label}: the kernels differ from the plain peeling loop")
+        if main is None:
+            main = (v, mask, row)
+    v, mask, row = main
+    per_call = device_kernels(lambda: nds.rank_fronts(v, mask))
+    torch.cuda.set_sync_debug_mode("error")  # any host sync inside the wrapper raises
+    try:
+        nds.rank_fronts(v, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    call_ms = cuda_ms(lambda: nds.rank_fronts(v, mask))
+    print(
+        f"nds_rank at {tuple(v.shape)}: {per_call} kernel(s) and no host sync a ranking; per call with host "
+        f"overhead {call_ms:.4f} ms; the fronts are one dependent chain of steps, so the kernel is bound by "
+        f"the latency of a step, not by its bound; no single PyTorch call computes this function"
+    )
+    if per_call > 2:
+        fail(f"nds_rank: one ranking ran {per_call} kernels on the card, expected at most 2")
+    return row
 
 
 def wfg_frame(n: int, m: int, seed: int, device):
@@ -763,9 +873,12 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
-    # The one-node WFG kernel keeps its row (the node step's check and
-    # timing) with the launches the paths made of it: none.
-    rows = [phase_matern(device), phase_nds(device), phase_wfg_kernel(device), phase_wfg_stack(device)]
+    # The dominance-matrix and one-node WFG kernels keep their rows (checks
+    # and timings) with the launches the paths made of them: none.
+    rows = [
+        phase_matern(device), phase_nds(device), phase_nds_rank(device), phase_wfg_kernel(device),
+        phase_wfg_stack(device),
+    ]
     phase_small_sparse(device)
 
     def reset():
@@ -787,7 +900,7 @@ def main() -> None:
     reset()
     hv_s = phase_hv()
     hv = counts()
-    launches = {"matern52_gram": gp["matern52_gram"], "nds": nsga["nds"], "wfg_stack": hv["wfg_stack"]}
+    launches = {"matern52_gram": gp["matern52_gram"], "nds_rank": nsga["nds_rank"], "wfg_stack": hv["wfg_stack"]}
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
         f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv})"
@@ -797,14 +910,18 @@ def main() -> None:
             fail(f"kernel {name} never launched on its path")
     if sparse_launches < 8:
         fail(f"matern52_gram launched {sparse_launches} times over the sparse asks")
-    if launches["nds"] < 2:
-        fail(f"nds launched {launches['nds']} times over NSGA-II generations 2 and 3")
+    if launches["nds_rank"] < 2:
+        fail(f"nds_rank launched {launches['nds_rank']} times over NSGA-II generations 2 and 3")
     if launches["wfg_stack"] != 2:
         fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
     per_node = gp["wfg_limit_filter"] + nsga["wfg_limit_filter"] + hv["wfg_limit_filter"]
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
     launches["wfg_limit_filter"] = per_node
+    matrix = gp["nds"] + nsga["nds"] + hv["nds"]
+    if matrix:
+        fail(f"the dominance-matrix kernel launched {matrix} times on the paths: the ranking kernels rank")
+    launches["nds"] = matrix
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_thresholds()

@@ -41,18 +41,33 @@ def matern52_gram_plain(
     return scale * (1.0 + sqrt5d + (5.0 / 3.0) * d2) * torch.exp(-sqrt5d)
 
 
+def cat_bytes(cat_mask: torch.Tensor) -> torch.Tensor:
+    """The bool ``cat_mask`` as the kernel reads it, one byte 0 or 1 a dim:
+    a view of the same memory, so no cast kernel runs."""
+    if cat_mask.dtype != torch.bool:
+        raise TypeError(f"matern52_gram: cat_mask must be bool, got {cat_mask.dtype}.")
+    return cat_mask.contiguous().view(torch.uint8)
+
+
 @functools.cache
-def _launcher():
-    """The built kernel's C entry point, with its argument types declared."""
+def _lib():
+    """The built library of ``csrc/matern52_gram.cu``, bound."""
     from optuna_tpu_torch.ops.kernels import _nvcc
 
-    fn = _nvcc.load(_SOURCE).matern52_gram_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return bind(_nvcc.load(_SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of the entry point of a library built from
+    ``csrc/matern52_gram.cu`` (or a revision of it); returns ``lib``."""
+    fn = lib.matern52_gram_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
-def _launch(x1, x2, w, scale, cat_mask) -> torch.Tensor:
+def _launch(x1, x2, w, scale, cat_mask, lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """The kernel of ``lib`` (default: the tree's, counted in :data:`LAUNCHES`)."""
     global LAUNCHES
     dev = x1.device
     for name, t in (("x2", x2), ("inv_sq_lengthscales", w), ("scale", scale), ("cat_mask", cat_mask)):
@@ -68,18 +83,17 @@ def _launch(x1, x2, w, scale, cat_mask) -> torch.Tensor:
         raise ValueError("matern52_gram: inv_sq_lengthscales and cat_mask must be (d,), scale one value.")
     x1c, x2c, wc = x1.contiguous(), x2.contiguous(), w.contiguous()
     sc = scale.reshape(1).contiguous()
-    cat = cat_mask.to(torch.uint8).contiguous()
+    cat = cat_bytes(cat_mask)
     out = torch.empty((x1.shape[0], x2.shape[0]), dtype=torch.float32, device=dev)
-    fn = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            x1c.data_ptr(), x2c.data_ptr(), wc.data_ptr(), sc.data_ptr(), cat.data_ptr(),
-            out.data_ptr(), x1.shape[0], x2.shape[0], d, stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = (lib or _lib()).matern52_gram_launch(
+        x1c.data_ptr(), x2c.data_ptr(), wc.data_ptr(), sc.data_ptr(), cat.data_ptr(),
+        out.data_ptr(), x1.shape[0], x2.shape[0], d, dev.index, stream,
+    )
     if err != 0:
         raise RuntimeError(f"matern52_gram kernel launch failed: CUDA error {err}.")
-    LAUNCHES += 1
+    if lib is None:
+        LAUNCHES += 1
     return out
 
 

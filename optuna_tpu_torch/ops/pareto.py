@@ -1,12 +1,11 @@
-"""Non-domination ranking on the device: the dominance kernel plus a peeling
-loop of torch ops (port of ``optuna_tpu/ops/pareto.py``).
+"""Non-domination ranking on the device (port of ``optuna_tpu/ops/pareto.py``).
 
-The O(N² M) dominance comparisons run as one launch of
-:func:`optuna_tpu_torch.ops.kernels.nds.dominance_matrix`; the
-O(front-count) peeling loop, a ``lax.while_loop`` in the reference, is a
-loop of torch ops that stays on the device. The host reads whether any row
-remains once every :data:`FRONTS_PER_SYNC` fronts; a front step with no row
-left changes nothing, so the extra steps are harmless.
+The reference computes the O(N² M) dominance matrix with a Pallas kernel
+and peels fronts with a ``lax.while_loop`` in the same jitted function. Here
+both run on the card in two kernel launches per ranking, whatever the
+number of fronts (:func:`optuna_tpu_torch.ops.kernels.nds.rank_fronts`),
+with no host read before the caller's. CPU tensors take the plain torch
+loop, :func:`non_domination_rank_plain`.
 """
 
 from __future__ import annotations
@@ -16,33 +15,23 @@ import torch
 
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.ops.kernels.nds import TILE as _TILE
-from optuna_tpu_torch.ops.kernels.nds import dominance_matrix
-
-#: Front steps between two host checks of the peeling loop.
-FRONTS_PER_SYNC = 8
+from optuna_tpu_torch.ops.kernels.nds import rank_fronts, rank_fronts_plain
 
 
 def non_domination_rank(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Ranks (0 = Pareto front) for masked rows; padded rows get ``N + 1``.
 
     ``values`` (N, M) float32, minimisation-normalised; ``mask`` (N,) 1.0 for
-    real rows. Returns (N,) int32 on ``values.device``.
+    real rows. Returns (N,) int32 on ``values.device``: the ranking kernels
+    for CUDA tensors, :func:`non_domination_rank_plain` for CPU tensors.
     """
-    n = values.shape[0]
-    mask = mask.to(torch.float32)
-    dom = dominance_matrix(values) * mask[:, None] * mask[None, :]
-    ranks = torch.full((n,), n + 1, dtype=torch.int32, device=values.device)
-    remaining = mask.clone()
-    r = 0
-    while True:
-        for _ in range(FRONTS_PER_SYNC):
-            dominated = torch.any((dom * remaining[:, None]) > 0, dim=0)
-            front = (remaining > 0) & ~dominated
-            ranks = torch.where(front, r, ranks)
-            remaining = torch.where(front, 0.0, remaining)
-            r += 1
-        if not bool(torch.any(remaining > 0)):
-            return ranks
+    return rank_fronts(values, mask.to(torch.float32))[: values.shape[0]]
+
+
+def non_domination_rank_plain(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`non_domination_rank` as a loop of torch ops on any device: the
+    CPU route, and the check of the kernels on the card."""
+    return rank_fronts_plain(values, mask)[: values.shape[0]]
 
 
 def non_domination_rank_np(values: np.ndarray, *, device=None) -> np.ndarray:

@@ -88,3 +88,36 @@ def test_kernel_matches_plain_and_f64_on_the_card(cuda_device, n1, n2, d, n_cat)
     plain = matern.matern52_gram_plain(*args)
     np.testing.assert_allclose(np64(out), np64(plain), rtol=0, atol=1e-6)
     np.testing.assert_allclose(np64(out), _oracle(x1, x2, w, scale, cat), rtol=0, atol=1e-6)
+
+
+def test_cat_mask_goes_to_the_kernel_as_a_view_of_its_bytes():
+    cat = torch.tensor([False, True, True, False, True])
+    as_bytes = matern.cat_bytes(cat)
+    assert as_bytes.dtype == torch.uint8 and as_bytes.data_ptr() == cat.data_ptr()
+    assert as_bytes.tolist() == [0, 1, 1, 0, 1]
+    assert cat.dtype == torch.bool and cat.tolist() == [False, True, True, False, True]
+    with pytest.raises(TypeError):
+        matern.cat_bytes(cat.to(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n1,n2,d,n_cat,offset",
+    [(37, 23, 5, 0, 0), (70, 301, 20, 0, 0), (50, 130, 33, 2, 0), (256, 4094, 20, 0, 1), (64, 99, 5, 1, 1)],
+)
+def test_kernel_at_ragged_dims_and_offset_views_on_the_card(cuda_device, n1, n2, d, n_cat, offset):  # noqa: F811
+    # d = 5 is never float4-aligned, d = 20 is, d = 33 takes two passes; an
+    # offset of one element makes x2 a view whose base is not 16-byte aligned.
+    x1, x2, w, scale, cat = _inputs(n1, n2, d, n_cat, seed=n1 * n2 + d)
+    args = [torch.as_tensor(a).to(cuda_device) for a in (x1, x2, w, scale, cat)]
+    if offset:
+        storage = torch.zeros(offset + n2 * d, device=cuda_device)
+        storage[offset:] = args[1].reshape(-1)
+        args[1] = storage[offset:].view(n2, d)
+        assert args[1].storage_offset() == offset and args[1].is_contiguous()
+    before = matern.LAUNCHES
+    out = matern.matern52_gram(*args)
+    torch.cuda.synchronize()
+    assert matern.LAUNCHES == before + 1
+    np.testing.assert_allclose(np64(out), np64(matern.matern52_gram_plain(*args)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np64(out), _oracle(x1, x2, w, scale, cat), rtol=0, atol=1e-6)

@@ -149,3 +149,106 @@ def test_kernel_equals_plain_on_the_card(cuda_device, n, m):  # noqa: F811
     torch.cuda.synchronize()
     assert nds.LAUNCHES == before + 1
     assert torch.equal(out, nds.dominance_matrix_plain(x))
+
+
+def _chain(n, m, order):
+    """A chain of ``n`` fronts: every row dominates the rows after it in
+    ``order`` ("forward", "reverse" or "shuffled" row order)."""
+    depth = np.arange(n, dtype=np.float32)
+    if order == "reverse":
+        depth = depth[::-1].copy()
+    elif order == "shuffled":
+        depth = np.random.RandomState(n).permutation(n).astype(np.float32)
+    return np.repeat(depth[:, None], m, axis=1), np.ones(n, np.float32)
+
+
+def _rank_case(name):
+    """``(values, mask)`` of the ranking cases the plain loop and the
+    kernels are held to (the kernels only on the card)."""
+    if name.startswith("chain"):
+        _, order, n = name.split("-")
+        return _chain(int(n), 2, order)
+    if name == "identical":
+        return np.full((70, 3), 2.0, np.float32), np.ones(70, np.float32)
+    if name == "m1":
+        return _ordinals_with_ties(90, 1, seed=1)
+    if name == "m40":
+        return _ordinals_with_ties(96, 40, seed=2)
+    if name == "padded-33-128":
+        return _ordinals_with_ties(33, 3, seed=3, n_pad=128)
+    if name == "all-masked":
+        v, mask = _ordinals_with_ties(40, 2, seed=4)
+        return v, np.zeros_like(mask)
+    raise ValueError(name)
+
+
+PLAIN_CASES = [
+    "chain-forward-150", "chain-reverse-150", "chain-shuffled-150", "identical", "m1", "m40", "padded-33-128",
+    "all-masked",
+]
+
+
+@pytest.mark.parametrize("name", PLAIN_CASES)
+def test_plain_ranking_equals_the_reference(name):
+    v, mask = _rank_case(name)
+    n = v.shape[0]
+    got = pareto.non_domination_rank_plain(t32(v), t32(mask))
+    ref = np.asarray(ref_pareto.non_domination_rank(v, mask, use_pallas=False))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    fronts = int(nds.rank_fronts_plain(t32(v), t32(mask))[n])
+    real = ref[mask > 0]
+    assert fronts == (int(real.max()) + 1 if real.size else 0)
+    if name.startswith("chain"):
+        assert fronts == n
+
+
+def test_non_domination_rank_on_cpu_runs_the_plain_version_without_a_launch():
+    v, mask = _ordinals_with_ties(300, 3, seed=12, n_pad=384)
+    before = nds.RANK_LAUNCHES
+    got = pareto.non_domination_rank(t32(v), t32(mask))
+    assert nds.RANK_LAUNCHES == before
+    assert got.dtype == torch.int32 and got.shape == (384,)
+    assert torch.equal(got, pareto.non_domination_rank_plain(t32(v), t32(mask)))
+
+
+@pytest.mark.parametrize(
+    "values,mask,error",
+    [
+        (torch.zeros(8, 2, dtype=torch.float64), torch.ones(8), TypeError),
+        (torch.zeros(8), torch.ones(8), ValueError),
+        (torch.zeros(8, 2), torch.ones(7), ValueError),
+        (torch.zeros(8, 2), torch.ones(8, dtype=torch.float64), ValueError),
+    ],
+)
+def test_rank_wrapper_raises_before_any_launch(values, mask, error):
+    before = nds.RANK_LAUNCHES
+    with pytest.raises(error):
+        nds._rank_launch(values, mask)
+    assert nds.RANK_LAUNCHES == before
+
+
+CARD_RANK_CASES = [
+    ("ordinals", 512, 2, 512), ("ordinals", 600, 5, 640), ("ordinals", 128, 3, 128), ("ordinals", 96, 40, 96),
+    ("ordinals", 8192, 2, 8192), ("ordinals", 1000, 2, 1000), ("ordinals", 1300, 3, 1300),
+    ("chain-shuffled", 2048, 2, 2048), ("chain-reverse", 700, 2, 700), ("identical", 70, 3, 70),
+    ("all-masked", 40, 2, 40), ("ordinals", 1, 2, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,m,n_pad", CARD_RANK_CASES)
+def test_rank_fronts_equals_plain_on_the_card(cuda_device, kind, n, m, n_pad):  # noqa: F811
+    if kind == "ordinals":
+        v, mask = _ordinals_with_ties(n, m, seed=n * m, n_pad=n_pad)
+    elif kind.startswith("chain"):
+        v, mask = _chain(n, m, kind.split("-")[1])
+    else:
+        v, mask = _rank_case(kind)
+    x, mk = torch.as_tensor(v, device=cuda_device), torch.as_tensor(mask, device=cuda_device)
+    before = nds.RANK_LAUNCHES
+    out = nds.rank_fronts(x, mk)
+    torch.cuda.synchronize()
+    assert nds.RANK_LAUNCHES == before + 1
+    plain = nds.rank_fronts_plain(x, mk)
+    assert torch.equal(out, plain)
+    assert torch.equal(pareto.non_domination_rank(x, mk), plain[:n_pad])
