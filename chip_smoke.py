@@ -3,7 +3,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile   # also trace one more ask of each engine
+    python3 chip_smoke.py --profile   # also trace one more ask and scan chunk of each engine
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -21,7 +21,7 @@ Phases (any failure exits non-zero and prints no result line):
    (96, 40), a chain of 2048 fronts and (8192, 2); the WFG stack kernel (K3
    on the hypervolume path) bit for bit and node for node against the
    plain stack loop on the card, at the 512-point root and the fronts of
-   32 and 64 that phase 8 times.
+   32 and 64 that phase 12 times.
 3. A small sparse reduction on the card against the same code on the CPU.
 4. Exact engine: a GPSampler study on Hartmann-20D with 1000 seeded completed
    trials, then 3 GP asks.
@@ -34,11 +34,27 @@ Phases (any failure exits non-zero and prints no result line):
    contributions of its first 64 points through the WFG stack kernel (one
    launch each), against the host float64 oracle and the CPU (equal node
    counts).
-8. Host and card times at the reference's routing thresholds (rank at
-   256/512/1024 points, WFG at fronts of 32 and 64).
+8. The scan loop's sparse chunk program at a small size (d = 5, bucket 128,
+   m_pad 16, chunk 8) on the card and on the CPU with the same inputs and
+   draws: the fitted loss, the first proposal's LogEI, the chunk's fill,
+   quarantines and first swap decision (K1 on the scan path against its
+   plain version).
+9. Scan, fresh: ``optimize_scan`` of the batched Hartmann-20D on a new
+   study, 48 trials (16 startup, then exact chunks of 16 at buckets 32 and
+   64), run twice with one seed: identical trial for trial.
+10. Scan, exact: 960 seeded trials, then 64 trials in two exact chunks of 32
+    at bucket 1024 (the cold fit, then a warm one).
+11. Scan, sparse: 4000 seeded trials, then 64 trials in two SGPR chunks of 32
+    at bucket 4096 with m_pad 256; K1 must launch once per chunk and once
+    per inducing swap-in. Phases 9-11 print seconds per chunk, trials per
+    second, the ``scan.chunk``/``scan.sync`` phase totals, the device stats
+    and K1's launches; with ``--profile`` one more chunk of each engine is
+    traced (kernels and host reads per step).
+12. Host and card times at the reference's routing thresholds (rank at
+    256/512/1024 points, WFG at fronts of 32 and 64).
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7) and read just after it; every kernel must have launched on its path,
+6, 7, 9-11) and read just after it; every kernel must have launched on its path,
 and the dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The line before the last
 is the kernel table as JSON (every kernel, the two check kernels with their
@@ -107,6 +123,9 @@ HV_TOL_CPU = 1e-6  # the same stack on the card and the CPU: same f32 operations
 LOO_TOL = 2e-3  # leave-one-out vs the host oracle, as a share of the total (tests/test_hypervolume.py)
 NSGA_POP, NSGA_TRIALS, ZDT_DIM = 256, 1024, 30
 HV_REF_ZDT = (1.1, 10.0)  # bench.py's ZDT1 hypervolume reference point
+SCAN_FRESH_TRIALS = 48  # 16 startup trials, then chunks of 16 at buckets 32 and 64
+SCAN_LOSS_RTOL = 1e-4  # scan chunk card vs CPU: the fitted loss (tests/test_torch_scan_parity.py)
+SCAN_LOGEI_ATOL = 1e-3  # ... and the LogEI of the first proposals, the same points on both sides
 
 
 def fail(msg: str) -> None:
@@ -519,7 +538,7 @@ def stack_work(pts0, m0) -> tuple[int, int]:
 def phase_wfg_stack(device) -> dict:
     """The stack kernel against the plain stack loop, both on the card: the
     same bits and the same node count at the 512-point root and at the
-    fronts of 32 and 64 that phase 8 times; then its time at the root."""
+    fronts of 32 and 64 that phase 12 times; then its time at the root."""
     import torch
 
     from optuna_tpu_torch.ops.kernels import wfg
@@ -749,22 +768,28 @@ def device_profile(prof) -> tuple[float, int, list, object]:
     """From a finished ``torch.profiler`` run: the device's busy ms and kernel
     count, summed over the device-side events only (an operator's row repeats
     its kernels' time, so summing every row counts each kernel twice), and
-    the host-side operators sorted by the device time of their kernels."""
+    the host-side operators sorted by the device time of their kernels. The
+    port's ``record_function`` ranges (``telemetry.trace_name``, such as the
+    scan loop's ``scan.chunk``) also show as device-side rows spanning all
+    inside them; they are left out."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))  # noqa: E731
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_device = [
+        e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("optuna_tpu_torch.")
+    ]
     busy_ms = sum(dev(e) for e in on_device) / 1e3
     kernels = sum(e.count for e in on_device)
     ops = sorted((e for e in events if e.device_type != DeviceType.CUDA), key=dev, reverse=True)
     return busy_ms, kernels, ops, dev
 
 
-def profiled(label: str, fn) -> tuple[float, float, int]:
-    """Run ``fn`` under torch.profiler; print the device's busy share and the
-    top operators, write the full table to chiprun_out/, and return the wall
-    ms, the busy ms and the kernel count."""
+def profiled(label: str, fn) -> tuple[float, float, int, int, int]:
+    """Run ``fn`` under torch.profiler; print the device's busy share, the
+    host reads (device-to-host copies, stream syncs) and the top operators,
+    write the full table to the output directory, and return the wall ms,
+    the busy ms, the kernel count and the two host-read counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -774,15 +799,18 @@ def profiled(label: str, fn) -> tuple[float, float, int]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, kernels, ops, dev = device_profile(prof)
+    events = prof.key_averages()
+    dtoh = sum(e.count for e in events if "DtoH" in e.key)
+    syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     print(
         f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {kernels} kernels; top: "
-        + "; ".join(f"{e.key[:48]} x{e.count} {dev(e) / 1e3:.2f} ms" for e in ops[:8])
+        f"({100 * busy_ms / wall_ms:.1f}%), {kernels} kernels, {dtoh} device-to-host copies, {syncs} stream "
+        "syncs; top: " + "; ".join(f"{e.key[:48]} x{e.count} {dev(e) / 1e3:.2f} ms" for e in ops[:8])
     )
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"profile_{label.replace(' ', '_')}.txt"), "w") as fh:
-        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    return wall_ms, busy_ms, kernels
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return wall_ms, busy_ms, kernels, dtoh, syncs
 
 
 def run_asks(label: str, n_history: int, n_asks: int, profile: bool = False) -> list[float]:
@@ -815,6 +843,225 @@ def run_asks(label: str, n_history: int, n_asks: int, profile: bool = False) -> 
         f"best value {study.best_value:.6f}"
     )
     return seconds
+
+
+def scan_objective(d: int = 20):
+    """The scan bench's batched Hartmann-20D over twenty unit intervals."""
+    from optuna_tpu_torch.distributions import FloatDistribution
+    from optuna_tpu_torch.models.benchmarks import hartmann20_torch
+    from optuna_tpu_torch.parallel import VectorizedObjective
+
+    return VectorizedObjective(hartmann20_torch, {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(d)})
+
+
+def run_scan(label: str, study, objective, n_trials: int, k1_count, **kwargs) -> dict:
+    """One ``optimize_scan`` call on the card with a fresh telemetry registry.
+    Checks that it added ``n_trials`` COMPLETE, finite, in-box trials, prints
+    the phase line (seconds per chunk and trials per second by host clock
+    over the chunks and their syncs, which end in one; the phase totals; the
+    device stats; K1's launches) and returns the numbers."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import checkpoint, device_stats, telemetry
+    from optuna_tpu_torch.parallel import optimize_scan
+
+    n_before = len(study.get_trials(deepcopy=False))
+    k1_before = k1_count()
+    telemetry.enable(telemetry.MetricsRegistry())
+    try:
+        t0 = time.perf_counter()
+        optimize_scan(study, objective, n_trials, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = telemetry.phase_totals()
+        gauges = device_stats.stat_gauges()
+    finally:
+        telemetry.disable()
+    k1 = k1_count() - k1_before
+    new = study.get_trials(deepcopy=False)[n_before:]
+    if len(new) != n_trials:
+        fail(f"{label}: {len(new)} trials, expected {n_trials}")
+    for t in new:
+        xs = [t.params[name] for name in objective.search_space]
+        if t.state != ot.TrialState.COMPLETE or not math.isfinite(t.value) or not all(0.0 <= x <= 1.0 for x in xs):
+            fail(f"{label}: trial {t.number} is {t.state.name}, non-finite or out of the box")
+    n_startup = sum(":cs:" in t.system_attrs[checkpoint.OP_TOKEN_ATTR] for t in new)
+    chunk, sync = phases.get("scan.chunk", {}), phases.get("scan.sync", {})
+    n_chunks = int(chunk.get("count", 0))
+    loop_s = chunk.get("total_s", 0.0) + sync.get("total_s", 0.0)
+    scan_trials = n_trials - n_startup
+    info = {
+        "wall_s": wall, "chunks": n_chunks, "s_per_chunk": chunk.get("total_s", 0.0) / max(n_chunks, 1),
+        "trials_per_s": scan_trials / loop_s if loop_s else 0.0, "k1": k1, "gauges": gauges,
+    }
+    print(
+        f"{label}: {n_trials} trials ({n_startup} startup) in {wall:.3f} s; {n_chunks} chunks, "
+        f"{info['s_per_chunk']:.4f} s per chunk, {info['trials_per_s']:.3f} trials/s over the chunks and syncs; "
+        f"phases {json.dumps(phases)}; device stats {json.dumps(gauges)}; K1 launches {k1}; "
+        f"best value {study.best_value:.6f}"
+    )
+    return info
+
+
+def profile_scan_chunk(label: str, n_history: int, chunk_len: int, **kwargs) -> None:
+    """One chunk (its cold fit and its sync included) on a new seeded study
+    of ``n_history`` trials, under the profiler: kernels and host reads
+    (device-to-host copies, stream syncs) per step."""
+    from optuna_tpu_torch.parallel import optimize_scan
+
+    study, objective = seeded_study(n_history), scan_objective()
+    _, _, kernels, dtoh, syncs = profiled(
+        label, lambda: optimize_scan(study, objective, chunk_len, sync_every=chunk_len, seed=1, **kwargs)
+    )
+    print(
+        f"profile {label}: per step {kernels / chunk_len:.1f} kernels, {dtoh / chunk_len:.1f} device-to-host "
+        f"copies, {syncs / chunk_len:.1f} stream syncs (a chunk of {chunk_len}, its fit and sync included)"
+    )
+
+
+def phase_scan_fresh(k1_count) -> dict:
+    """A new study, startup then two exact chunks (buckets 32 and 64), run
+    twice with one seed: identical trial for trial."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import RandomSampler
+
+    objective = scan_objective()
+    runs, infos = [], []
+    for k in range(2):
+        study = ot.create_study(sampler=RandomSampler(seed=0))  # bypassed by the scan loop
+        infos.append(run_scan(
+            f"scan fresh, run {k + 1}", study, objective, SCAN_FRESH_TRIALS, k1_count,
+            sync_every=16, n_startup_trials=16, seed=0,
+        ))
+        runs.append([(t.params, t.value) for t in study.get_trials(deepcopy=False)])
+    if infos[0]["chunks"] != 2:
+        fail(f"scan fresh: {infos[0]['chunks']} chunks, expected 2")
+    if runs[0] != runs[1]:
+        first = next(i for i, (a, b) in enumerate(zip(*runs)) if a != b)
+        fail(f"scan fresh: the two seeded runs part at trial {first}")
+    print(f"scan fresh: the two seeded runs are identical over {len(runs[0])} trials")
+    return infos[1]
+
+
+def phase_scan_exact(k1_count, profile: bool) -> dict:
+    """960 seeded trials, then two exact chunks of 32 at bucket 1024."""
+    study, objective = seeded_study(960), scan_objective()
+    info = run_scan("scan exact", study, objective, 64, k1_count, sync_every=32, seed=0)
+    g = info["gauges"]
+    told = sum(int(g.get(f"device.scan.{k}.total", 0)) for k in ("rank1_updates", "refactorizations", "quarantined"))
+    if info["chunks"] != 2 or told != 64:
+        fail(f"scan exact: {info['chunks']} chunks, {told} tells in the device stats, expected 2 and 64")
+    if profile:
+        profile_scan_chunk("scan exact chunk", 960, 32)
+    return info
+
+
+def phase_scan_sparse(k1_count, profile: bool) -> dict:
+    """4000 seeded trials, then two SGPR chunks of 32 at bucket 4096 with
+    m_pad 256: K1 launches once per chunk boundary and once per swap-in."""
+    study, objective = seeded_study(4000), scan_objective()
+    kwargs = dict(n_exact_max=1024, n_inducing=256)
+    info = run_scan("scan sparse", study, objective, 64, k1_count, sync_every=32, seed=0, **kwargs)
+    g = info["gauges"]
+    told = sum(int(g.get(f"device.scan.{k}.total", 0)) for k in ("rank1_updates", "refactorizations", "quarantined"))
+    swaps = int(g.get("device.gp.inducing_swaps.total", -1))
+    if info["chunks"] != 2 or told + swaps != 64 or int(g.get("device.gp.inducing_count.last", 0)) != 256:
+        fail(f"scan sparse: {info['chunks']} chunks, {told} tells + {swaps} swaps, stats {g}")
+    if info["k1"] != info["chunks"] + swaps:
+        fail(f"scan sparse: K1 launched {info['k1']} times, expected {info['chunks']} chunks + {swaps} swaps")
+    if profile:
+        profile_scan_chunk("scan sparse chunk", 4000, 32, **kwargs)
+    return info
+
+
+def phase_scan_chunk(device) -> None:
+    """One sparse chunk program at a small size (d = 5, bucket 128, m_pad 16,
+    chunk 8) on the card and on the CPU, same inputs and draws: the fitted
+    loss, the first proposal's LogEI, the chunk's fill, quarantines and
+    first swap decision. K1 on the scan path against its plain version.
+
+    The LogEI is held at the same points on both sides: each side's two
+    first proposals (the card's and the CPU's) under each side's chunk-start
+    model (its own fitted params and its own reduction, K1 on the card).
+    The value the ascent itself ends at is printed too but not held: its 16
+    truncated L-BFGS iterations end where the line searches stop, and a
+    1-ulp change in the Gram can move that end point along the ridge."""
+    import torch
+
+    from optuna_tpu_torch.distributions import FloatDistribution
+    from optuna_tpu_torch.gp.acqf import LogEIData, logei_value
+    from optuna_tpu_torch.gp.gp import _loss, params_from_raw
+    from optuna_tpu_torch.gp.search_space import SearchSpace
+    from optuna_tpu_torch.gp.sparse import sgpr_reduce
+    from optuna_tpu_torch.ops.kernels import matern
+    from optuna_tpu_torch.parallel import VectorizedObjective, scan_loop
+    from optuna_tpu_torch.samplers._gp.sampler import _DeviceSpace
+
+    d, n_real, bucket, m_pad, chunk, n_pool, min_noise = 5, 100, 128, 16, 8, 128, 1e-5
+
+    def f(p):
+        x = torch.stack([p[f"x{i}"] for i in range(d)], dim=-1)
+        return torch.sum((x - 0.3) ** 2, dim=-1) - 0.2 * torch.sin(6.0 * x[:, 0])
+
+    objective = VectorizedObjective(f, {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(d)})
+    space = SearchSpace(objective.search_space)
+    rng = np.random.default_rng(4)
+    cpu = torch.device("cpu")
+    X = torch.zeros(bucket, d)
+    X[:n_real] = torch.as_tensor(rng.uniform(size=(n_real, d)), dtype=torch.float32)
+    mask = (torch.arange(bucket) < n_real).to(torch.float32)
+    y = torch.where(mask > 0, -f({f"x{i}": X[:, i] for i in range(d)}), torch.zeros(bucket))
+    default = np.r_[np.zeros(d + 1), np.log(1e-2)].astype(np.float32)
+    starts = torch.as_tensor(np.stack([default] + [default + rng.normal(size=d + 2).astype(np.float32) for _ in range(3)]))
+    Z, zy, zm = scan_loop._seed_inducing_program(m_pad)(X, y, mask)
+    shifts, gumbels = scan_loop._chunk_draws(0, 0, chunk, d, scan_loop._N_INCUMBENTS + n_pool, cpu)
+    outs = {}
+    for dev in (device, cpu):
+        program = scan_loop._chunk_program_sparse(
+            objective, space, _DeviceSpace(space, n_pool, dev), fit_iters=48, minimum_noise=min_noise,
+            maximize=False, n_local_search=4, lbfgs_iters=16,
+        )
+        before = matern.LAUNCHES
+        out = program(*(t.to(dev) for t in (starts, X, y, mask)), n_real, *(t.to(dev) for t in (Z, zy, zm, shifts, gumbels)))
+        outs[dev.type] = (out, matern.LAUNCHES - before)
+    (card, launches), (host, _) = outs[device.type], outs["cpu"]
+    cat = torch.zeros(d, dtype=torch.bool)
+    mu, sd, _ = scan_loop._chunk_moments(y, mask)
+    zy_std = torch.where(zm > 0, (zy - mu) / sd, torch.zeros_like(zy))
+    loss = [float(_loss(o.raw.cpu()[None], Z, zy_std, cat, zm, min_noise)[0]) for o in (card, host)]
+    loss_err = abs(loss[0] - loss[1]) / abs(loss[1])
+    points = torch.stack([card.xs[0].cpu(), host.xs[0].cpu()])
+
+    def start_logei(out, dev):
+        # The chunk-start model of ``out``'s side, rebuilt as the chunk
+        # program builds it, scoring both sides' first proposals.
+        on = lambda t: t.to(dev)  # noqa: E731
+        mu_d, sd_d, y_std = scan_loop._chunk_moments(on(y), on(mask))
+        zs = torch.where(on(zm) > 0, (on(zy) - mu_d) / sd_d, torch.zeros_like(on(zy)))
+        params = params_from_raw(out.raw, d, min_noise)
+        state = sgpr_reduce(params, on(Z), zs, on(zm), on(X), y_std, on(mask), on(cat))[0]
+        best = scan_loop._incumbent_best(y_std, on(mask))
+        data = LogEIData(state=state, cat_mask=on(cat), best=best, stabilizing_noise=on(torch.tensor(1e-10)))
+        return logei_value(data, on(points)).cpu()
+
+    logei = [start_logei(o, dv) for o, dv in ((card, device), (host, cpu))]
+    logei_err = float(torch.max(torch.abs(logei[0] - logei[1])))
+    ascent_gap = abs(float(card.acq[0]) - float(host.acq[0]))
+    same = [card.stats[k] == host.stats[k] for k in ("scan.chunk_fill", "scan.quarantined")]
+    print(
+        f"scan chunk card vs CPU (d={d}, bucket {bucket}, m_pad {m_pad}, chunk {chunk}): fitted loss rel err "
+        f"{loss_err:.3e} (tolerance {SCAN_LOSS_RTOL}), first proposals' LogEI abs err {logei_err:.3e} (tolerance "
+        f"{SCAN_LOGEI_ATOL}; card {logei[0].tolist()}, CPU {logei[1].tolist()}; the ascents ended at "
+        f"{float(card.acq[0]):.6f}/{float(host.acq[0]):.6f}, gap {ascent_gap:.3e}, not held); fill "
+        f"{card.stats['scan.chunk_fill']}/{host.stats['scan.chunk_fill']}, quarantined "
+        f"{card.stats['scan.quarantined']}/{host.stats['scan.quarantined']}, first swap {card.swaps[:1]}/{host.swaps[:1]}; "
+        f"K1 launches on the card {launches} ({card.stats['gp.inducing_swaps']} swaps)"
+    )
+    if not (loss_err <= SCAN_LOSS_RTOL and logei_err <= SCAN_LOGEI_ATOL and all(same) and card.swaps[:1] == host.swaps[:1]):
+        fail("the scan chunk disagrees between the card and the CPU")
+    if launches != 1 + card.stats["gp.inducing_swaps"]:
+        fail(f"the scan chunk on the card launched K1 {launches} times, expected 1 + its swaps")
 
 
 def phase_small_sparse(device) -> None:
@@ -900,10 +1147,26 @@ def main() -> None:
     reset()
     hv_s = phase_hv()
     hv = counts()
-    launches = {"matern52_gram": gp["matern52_gram"], "nds_rank": nsga["nds_rank"], "wfg_stack": hv["wfg_stack"]}
+    t_scan = time.perf_counter()
+    phase_scan_chunk(device)
+    reset()
+    k1_count = lambda: wrappers["matern52_gram"].LAUNCHES  # noqa: E731
+    scan_fresh = phase_scan_fresh(k1_count)
+    scan_exact = phase_scan_exact(k1_count, profile_asks)
+    scan_sparse = phase_scan_sparse(k1_count, profile_asks)
+    scan = counts()
+    print(f"scan phases 8-11: {time.perf_counter() - t_scan:.1f} s, set-up and checks included")
+    launches = {
+        "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"],
+        "nds_rank": nsga["nds_rank"],
+        "wfg_stack": hv["wfg_stack"],
+    }
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
-        f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv})"
+        f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv}; scan {scan}: K1 fresh "
+        f"{scan_fresh['k1']}, exact {scan_exact['k1']}, sparse {scan_sparse['k1']} over "
+        f"{scan_sparse['chunks']} chunks and {int(scan_sparse['gauges']['device.gp.inducing_swaps.total'])} swaps"
+        f"{', profiled chunks included' if profile_asks else ''})"
     )
     for name, count in launches.items():
         if count < 1:
@@ -914,11 +1177,11 @@ def main() -> None:
         fail(f"nds_rank launched {launches['nds_rank']} times over NSGA-II generations 2 and 3")
     if launches["wfg_stack"] != 2:
         fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
-    per_node = gp["wfg_limit_filter"] + nsga["wfg_limit_filter"] + hv["wfg_limit_filter"]
+    per_node = gp["wfg_limit_filter"] + nsga["wfg_limit_filter"] + hv["wfg_limit_filter"] + scan["wfg_limit_filter"]
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
     launches["wfg_limit_filter"] = per_node
-    matrix = gp["nds"] + nsga["nds"] + hv["nds"]
+    matrix = gp["nds"] + nsga["nds"] + hv["nds"] + scan["nds"]
     if matrix:
         fail(f"the dominance-matrix kernel launched {matrix} times on the paths: the ranking kernels rank")
     launches["nds"] = matrix
@@ -929,7 +1192,9 @@ def main() -> None:
     print(
         f"gpu: {gpu} | exact median {float(np.median(exact_s)):.4f} s/ask, "
         f"sparse median {float(np.median(sparse_s)):.4f} s/ask, NSGA-II {nsga_s:.2f} s, "
-        f"hypervolume {hv_s:.2f} s, total {time.perf_counter() - t_start:.1f} s"
+        f"hypervolume {hv_s:.2f} s, scan {scan_exact['s_per_chunk']:.3f} s per exact chunk "
+        f"({scan_exact['trials_per_s']:.2f} trials/s), {scan_sparse['s_per_chunk']:.3f} s per sparse chunk "
+        f"({scan_sparse['trials_per_s']:.2f} trials/s), total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,16 +1,28 @@
 """optuna_tpu_torch — the PyTorch/CUDA port of ``optuna_tpu``.
 
-The port runs beside the JAX package, which stays the reference. This slice
-carries the GPSampler main path: ``create_study`` → ``Study.optimize`` →
-``GPSampler`` (exact and SGPR engines) on in-memory storage, with the
-Matérn-5/2 cross-covariance as a hand-written CUDA kernel for Hopper.
-Numerical entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; with no GPU they raise instead of moving to the CPU.
+The port runs beside the JAX package, which stays the reference. Three
+paths are ported, on in-memory storage:
+
+* **GP per trial**: ``create_study`` → ``Study.optimize`` → ``GPSampler``
+  (exact engine, and the SGPR engine above ``n_exact_max``);
+* **multi-objective**: ``NSGAIISampler`` (the default sampler of a
+  multi-objective study) and the hypervolume indicator
+  (``hypervolume.compute_hypervolume``, leave-one-out contributions);
+* **scan**: ``Study.optimize_scan`` / ``parallel.optimize_scan``, the
+  device-resident ask → evaluate → tell loop over a batched objective
+  (``parallel.VectorizedObjective``), exact and SGPR chunks.
+
+Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
+(``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the NSGA-II
+ranking, the WFG hypervolume stack. Numerical entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; with no GPU they raise instead
+of moving to the CPU.
 """
 
 from optuna_tpu_torch import _device  # noqa: F401  (TF32 off before any tensor work)
 from optuna_tpu_torch import distributions, exceptions, logging, pruners, samplers
 from optuna_tpu_torch import search_space, storages, study, trial
+from optuna_tpu_torch import parallel  # after study and trial: the scan loop builds trials
 from optuna_tpu_torch.exceptions import TrialPruned
 from optuna_tpu_torch.study import Study, StudyDirection, create_study
 from optuna_tpu_torch.trial import FrozenTrial, Trial, TrialState, create_trial
@@ -27,6 +39,7 @@ __all__ = [
     "distributions",
     "exceptions",
     "logging",
+    "parallel",
     "pruners",
     "samplers",
     "search_space",

@@ -4,7 +4,8 @@ The reference's ``GPParams``/``GPState`` hold JAX arrays; these helpers
 take anything ``numpy.asarray`` reads (JAX arrays included, without
 importing JAX here), by attribute or by mapping key, and build the port's
 tensors on ``device``. With them both packages can evaluate the posterior
-and LogEI of one fitted model.
+and LogEI of one fitted model, and :func:`scan_carry_from_numpy` starts the
+port's scan chunk programs from the reference's loop-top carry.
 """
 
 from __future__ import annotations
@@ -56,3 +57,30 @@ def kernel_params_cache_from_numpy(exported: Mapping[str, Any]) -> dict[str, Any
             for sig, raws in cache.items()
         }
     }
+
+
+#: The tensor fields of the scan loop's loop-top carry (the reference's
+#: ``scan_loop.py::_stash_carry``); ``Z``/``zy``/``zm``/``warm_raw`` are None
+#: until the loop first needs them.
+_SCAN_TENSORS = ("X", "y", "m")
+_SCAN_OPTIONAL = ("warm_raw", "Z", "zy", "zm")
+
+
+def scan_carry_from_numpy(
+    stash: Mapping[str, Any], device: "str | torch.device | None" = None
+) -> dict[str, Any]:
+    """The reference's scan carry (``X``, ``y``, ``m``, ``n_dev``,
+    ``warm_raw``, ``Z``, ``zy``, ``zm``, ``bucket``, ``m_pad``; numpy or JAX
+    arrays) as the port's: float32 tensors on ``device`` (None stays None),
+    the cursor ``n_dev`` and the sizes as Python ints."""
+    dev = resolve_device(device)
+    carry: dict[str, Any] = {
+        "n_dev": int(np.asarray(stash["n_dev"])),
+        "bucket": int(stash["bucket"]),
+        "m_pad": int(stash["m_pad"]),
+    }
+    for f in _SCAN_TENSORS:
+        carry[f] = _tensor(stash[f], dev)
+    for f in _SCAN_OPTIONAL:
+        carry[f] = None if stash.get(f) is None else _tensor(stash[f], dev)
+    return carry

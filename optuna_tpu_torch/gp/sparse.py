@@ -1,6 +1,6 @@
 """Large-n GP engine: SGPR inducing-point posteriors above ``N_EXACT_MAX``
-(PyTorch port of ``optuna_tpu/gp/sparse.py``; the scan-loop helpers and the
-host ``fit_gp_sparse`` wait).
+(PyTorch port of ``optuna_tpu/gp/sparse.py``; the host
+``select_inducing_host`` and ``fit_gp_sparse`` wait with ``fit_gp``).
 
 With inducing set ``Z`` (m rows), per-row noise precisions
 ``w_i = count_i / (noise + jitter)`` and cross-covariance ``C = K(Z, X)``:
@@ -37,6 +37,11 @@ N_EXACT_MAX = 1024
 
 #: Inducing-set capacity cap (a fixed-shape (m, d) buffer).
 N_INDUCING_MAX = 256
+
+#: Variance swap-in threshold of the scan loop: a new observation whose
+#: sparse posterior variance exceeds this fraction of the prior ``scale`` is
+#: poorly covered by the inducing set and replaces its most redundant point.
+SWAP_VAR_FRAC = 0.25
 
 
 def _pow2_bucket(n: int) -> int:

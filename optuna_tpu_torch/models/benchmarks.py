@@ -1,15 +1,19 @@
 """Benchmark objectives (port of ``optuna_tpu/models/benchmarks.py``).
 
 The port carries Hartmann-20D, BASELINE.md configuration #2: Hartmann-6 on
-the first six of twenty unit-interval parameters, the other fourteen inert;
-and ZDT1-3, configuration #4's two-objective problems.
+the first six of twenty unit-interval parameters, the other fourteen inert,
+as a define-by-run objective and as the batched objectives of the scan loop
+(``hartmann6_torch``, ``hartmann20_torch``); and ZDT1-3, configuration #4's
+two-objective problems.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
+import torch
 
 _H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
 _H6_A = np.array(
@@ -35,6 +39,28 @@ def hartmann6_np(x: np.ndarray) -> np.ndarray:
     x6 = np.asarray(x, dtype=np.float64)[:, :6]
     inner = np.sum(_H6_A[None] * (x6[:, None, :] - _H6_P[None]) ** 2, axis=-1)
     return -np.sum(_H6_ALPHA[None] * np.exp(-inner), axis=-1)
+
+
+@functools.cache
+def _h6_constants(device: torch.device, dtype: torch.dtype):
+    """(alpha, A, P) of Hartmann-6 on ``device``, uploaded once per device."""
+    return tuple(torch.as_tensor(c, dtype=dtype, device=device) for c in (_H6_ALPHA, _H6_A, _H6_P))
+
+
+def hartmann6_torch(params: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Batched Hartmann-6 (the ``VectorizedObjective`` convention:
+    ``{name: (B,)}`` -> ``(B,)``), computed in the inputs' dtype on their
+    device: the twin of the reference's ``hartmann6_jax``."""
+    x = torch.stack([params[f"x{i}"] for i in range(6)], dim=-1)  # (B, 6)
+    alpha, a, p = _h6_constants(x.device, x.dtype)
+    inner = torch.sum(a[None] * (x[:, None, :] - p[None]) ** 2, dim=-1)
+    return -torch.sum(alpha[None] * torch.exp(-inner), dim=-1)
+
+
+def hartmann20_torch(params: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Batched Hartmann-20: the 20D embedding's extra dims are inert, so this
+    is the Hartmann-6 kernel reading ``x0``..``x5``."""
+    return hartmann6_torch(params)
 
 
 def hartmann20(trial) -> float:

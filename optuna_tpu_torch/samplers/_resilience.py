@@ -3,6 +3,8 @@ host conditioners of ``optuna_tpu/samplers/_resilience.py``).
 
 * :func:`ladder_cholesky_with_rung` — Cholesky with escalating diagonal
   jitter; the single Cholesky call site for sampler code.
+* :func:`ladder_cholesky_rank1_update` — append one observation's row to a
+  ladder factor in O(n²), with a full-refactorization fallback.
 * :func:`ladder_cholesky_rank1_raise` — additive rank-1 update of a ladder
   factor with a full-refactorization fallback.
 * :func:`clip_objective_values`, :func:`collapse_duplicate_rows` — host-side
@@ -68,6 +70,62 @@ def ladder_cholesky(K: torch.Tensor, *, initial_jitter: float = _LADDER_INITIAL_
     """:func:`ladder_cholesky_with_rung` without the rung."""
     L, _ = ladder_cholesky_with_rung(K, initial_jitter=initial_jitter)
     return L
+
+
+#: Relative pivot floor for the incremental update: below this fraction of
+#: the new row's own diagonal the Schur complement is numerically spent
+#: (f32 eps is ~1.2e-7; duplicates under a deterministic noise floor land
+#: here) and the factor falls back to a full jitter-ladder refactorization.
+_RANK1_PIVOT_RTOL = 1e-6
+
+
+def ladder_cholesky_rank1_update(
+    L: torch.Tensor,
+    k_row: torch.Tensor,
+    slot: int,
+    kernel_fn: Callable[[], torch.Tensor],
+    *,
+    initial_jitter: float = _LADDER_INITIAL_JITTER,
+) -> tuple[torch.Tensor, int, int]:
+    """Extend a ladder-Cholesky factor by one observation in O(n²) instead
+    of refactorizing the whole Gram in O(n³): the scan loop's per-tell
+    update.
+
+    ``L`` is the (N, N) lower factor of the padded kernel whose rows
+    ``< slot`` are real observations (appends are in slot order, so every
+    row ``>= slot`` is padding). ``k_row`` is row ``slot`` of the extended
+    kernel: cross-covariances against the buffer plus the noise-carrying
+    diagonal at position ``slot``. A Cholesky factor's leading block depends
+    only on the leading block of the matrix, so the append touches one row:
+    one triangular solve for its off-diagonal entries and one Schur pivot
+    for its diagonal. Padding rows keep their stale, decoupled entries.
+
+    The pivot is the update's verdict, read to the host once: a non-finite
+    or near-zero Schur complement (an exact-duplicate row under a
+    deterministic noise floor) falls back to a full
+    :func:`ladder_cholesky_with_rung` of ``kernel_fn()``, built only on that
+    branch. Returns ``(L_new, rung, refactored)``; ``rung`` is 0 on the
+    incremental path, ``refactored`` is 0 or 1.
+    """
+    n = L.shape[-1]
+    idx = torch.arange(n, device=L.device)
+    before = idx < slot
+    zero = torch.zeros((), dtype=L.dtype, device=L.device)
+    k_masked = torch.where(before, k_row, zero)
+    l_off = torch.linalg.solve_triangular(L, k_masked[:, None], upper=False)[:, 0]
+    l_off = torch.where(before, l_off, zero)
+    diag = k_row[slot]
+    pivot = diag - torch.sum(l_off * l_off)
+    ok = (
+        torch.all(torch.isfinite(l_off))
+        & torch.isfinite(pivot)
+        & (pivot > _RANK1_PIVOT_RTOL * torch.abs(diag))
+    )
+    if bool(ok):
+        new_row = torch.where(idx == slot, torch.sqrt(torch.clamp(pivot, min=1e-30)), l_off)
+        return torch.where((idx == slot)[:, None], new_row[None, :], L), 0, 0
+    L_new, rung = ladder_cholesky_with_rung(kernel_fn(), initial_jitter=initial_jitter)
+    return L_new, rung, 1
 
 
 def ladder_cholesky_rank1_raise(

@@ -1,8 +1,8 @@
 """User-facing optimization session (PyTorch port of ``optuna_tpu/study/study.py``).
 
-This slice carries ``create_study``, ``Study.optimize/ask/tell/add_trial(s)``
-and the ``best_*`` accessors; the scan and sharded loops and ``ask_batch``
-are not ported yet.
+This slice carries ``create_study``, ``Study.optimize/ask/tell/add_trial(s)``,
+``Study.optimize_scan`` and the ``best_*`` accessors; the sharded loop and
+``ask_batch`` are not ported yet.
 
 Parity target: ``optuna/study/study.py`` (``Study:67``, ``create_study:1203``,
 ``load_study:1358``, ``delete_study:1447``, ``copy_study:1510``,
@@ -210,6 +210,19 @@ class Study:
             gc_after_trial=gc_after_trial,
             show_progress_bar=show_progress_bar,
         )
+
+    def optimize_scan(self, objective: Any, n_trials: int, **kwargs: Any) -> None:
+        """Run ``n_trials`` GP-BO trials with the ask -> evaluate -> tell cycle
+        on the device (see
+        :func:`optuna_tpu_torch.parallel.scan_loop.optimize_scan`): history
+        in power-of-two device buckets, ``sync_every`` trials per chunk with
+        incremental Cholesky tells, storage synced once per chunk.
+        ``objective`` is a
+        :class:`~optuna_tpu_torch.parallel.vectorized.VectorizedObjective`;
+        the study's sampler is bypassed."""
+        from optuna_tpu_torch.parallel.scan_loop import optimize_scan
+
+        optimize_scan(self, objective, n_trials, **kwargs)
 
     def ask(self, fixed_distributions: dict[str, BaseDistribution] | None = None) -> Trial:
         """Create a new (or claim a WAITING) trial (reference ``study.py:527``)."""

@@ -120,6 +120,20 @@ def test_the_multi_objective_modules_are_among_those_checked():
     assert set(MULTI_OBJECTIVE_MODULES) <= set(_all_modules())
 
 
+SCAN_MODULES = [
+    "optuna_tpu_torch.checkpoint",
+    "optuna_tpu_torch.device_stats",
+    "optuna_tpu_torch.parallel",
+    "optuna_tpu_torch.parallel.scan_loop",
+    "optuna_tpu_torch.parallel.vectorized",
+    "optuna_tpu_torch.telemetry",
+]
+
+
+def test_the_scan_modules_are_among_those_checked():
+    assert set(SCAN_MODULES) <= set(_all_modules())
+
+
 @pytest.mark.parametrize("module", ["matern", "nds", "wfg"])
 def test_every_kernel_wrapper_counts_launches_and_names_its_source(module):
     import importlib
