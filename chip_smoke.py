@@ -50,12 +50,33 @@ Phases (any failure exits non-zero and prints no result line):
     second, the ``scan.chunk``/``scan.sync`` phase totals, the device stats
     and K1's launches; with ``--profile`` one more chunk of each engine is
     traced (kernels and host reads per step).
-12. Host and card times at the reference's routing thresholds (rank at
+12. TPE (the single-objective default) on ``highdim_mixed`` (30 dims:
+    15 floats, 5 log floats, 5 ints in [1, 64], 5 four-way categoricals),
+    300 trials, univariate and then multivariate + group + constant liar,
+    and on Branin (2 dims): each seeded study run twice on the card is
+    identical; ms per trial over trials 50-299 on the card and in CPU
+    torch (the same study with ``device="cpu"``); kernels an ask
+    (profiler) at 30 dims, at 2 dims of the same types and at Branin's 2,
+    which must not grow with the dims; synchronizing calls an ask (at most
+    the one read).
+13. Card against CPU at the ask level: 200 asks packed from each study's
+    own history (univariate and multivariate), the same inputs and draws
+    on both sides: the same choices, scores within 1e-3 and candidates
+    within 2e-4 of a width; where a choice differs the best scores must be
+    a near tie, and those asks are counted.
+14. Hyperband with TPE on the card: every trial's bracket is the crc32
+    rule's, and the sampler reads only its bracket's trials.
+15. ``create_study()`` with no sampler samples with TPE on ``cuda``.
+16. MOTPE (TPE on two objectives) on ZDT1, 30 variables, 1024 trials: K2
+    ranks the split on every ask from 512 complete trials and on none
+    before; the first ranking equals the host's; the twin is identical.
+17. Host and card times at the reference's routing thresholds (rank at
     256/512/1024 points, WFG at fronts of 32 and 64).
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11) and read just after it; every kernel must have launched on its path,
-and the dominance-matrix and one-node WFG kernels not at all (the ranking
+6, 7, 9-11, 12-15, 16) and read just after it; every kernel must have
+launched on its path, the single-objective TPE phases none, and the
+dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The line before the last
 is the kernel table as JSON (every kernel, the two check kernels with their
 0 launches); the last line is the device summary.
@@ -126,6 +147,14 @@ HV_REF_ZDT = (1.1, 10.0)  # bench.py's ZDT1 hypervolume reference point
 SCAN_FRESH_TRIALS = 48  # 16 startup trials, then chunks of 16 at buckets 32 and 64
 SCAN_LOSS_RTOL = 1e-4  # scan chunk card vs CPU: the fitted loss (tests/test_torch_scan_parity.py)
 SCAN_LOGEI_ATOL = 1e-3  # ... and the LogEI of the first proposals, the same points on both sides
+TPE_TRIALS, TPE_WARMUP = 300, 50  # bench.py --config tpe_highdim: 50 warm-up trials, then the timed window
+MOTPE_TRIALS = 1024  # two-objective TPE on ZDT1: asks from trial 512 on rank through K2
+TPE_ASKS = 200  # asks packed from a study's own history, card against CPU
+# Card against CPU at the ask level, as measured on an H100 (PERF.md, Findings):
+# scores 1.81e-4 apart (of max(1, |score|)) and candidates 6.2e-5 of a width,
+# from CUDA's float32 ndtri/log_ndtr and sums in another order.
+TPE_SCORE_TOL = 1e-3
+TPE_CAND_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -1096,6 +1125,378 @@ def phase_small_sparse(device) -> None:
         fail("small sgpr_reduce disagrees between the card and the CPU")
 
 
+# ------------------------------------------------------------------- TPE
+
+
+def tpe_study(objective, n_trials: int, device=None, directions=None, callbacks=(), study_name=None, pruner=None,
+              **kwargs):
+    """A seeded TPE study (``seed=0``; ``device`` None is the card) and the
+    host clock after each trial."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import TPESampler
+
+    sampler = TPESampler(seed=0, **({} if device is None else {"device": device}), **kwargs)
+    study = ot.create_study(directions=directions or ["minimize"], sampler=sampler, study_name=study_name,
+                            pruner=pruner)
+    stamps: list[float] = []
+    study.optimize(objective, n_trials=n_trials, callbacks=[*callbacks, lambda s, t: stamps.append(time.perf_counter())])
+    return study, stamps
+
+
+def warm_ms(stamps: list[float], warmup: int = TPE_WARMUP) -> float:
+    """ms per trial over the trials after the first ``warmup`` (bench.py's
+    timed window); every ask ends in its read, so the host clock waits for
+    the card."""
+    return (stamps[-1] - stamps[warmup - 1]) / (len(stamps) - warmup) * 1e3
+
+
+def trial_rows(study) -> list:
+    return [(t.number, t.state.name, t.params, t.values) for t in study.get_trials(deepcopy=False)]
+
+
+def sync_sites(fn) -> dict[str, int]:
+    """Synchronizing CUDA calls made by ``fn`` (``torch.cuda.set_sync_debug_mode
+    ("warn")``), by the innermost calling line in the repo's package."""
+    import traceback
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    package = os.path.join(root, "optuna_tpu_torch")
+    sites: dict[str, int] = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack() if f.filename.startswith(package)]
+        where = frames[-1] if frames else None
+        site = f"{os.path.relpath(where.filename, root)}:{where.lineno}" if where else f"{filename}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def ask_costs(study, objective, asks: int = 5) -> tuple[int, float, dict]:
+    """Synchronizing calls a TPE ask makes (those whose stack reaches the
+    package; the sites of all) and kernels it runs on the card (profiler),
+    over ``asks`` more trials of ``study`` each. The syncs are counted
+    first: the profiler's own teardown may sync afterwards, from no frame
+    of the ask."""
+    sites = sync_sites(lambda: study.optimize(objective, n_trials=asks))
+    kernels = device_kernels(lambda: study.optimize(objective, n_trials=1), calls=asks)
+    in_ask = sum(v for k, v in sites.items() if k.startswith("optuna_tpu_torch"))
+    return kernels, in_ask / asks, {k: v / asks for k, v in sites.items()}
+
+
+def check_tpe_study(label: str, study, n_trials: int) -> None:
+    import optuna_tpu_torch as ot
+
+    trials = study.get_trials(deepcopy=False)
+    done = [t for t in trials if t.state == ot.TrialState.COMPLETE]
+    if len(trials) != n_trials or len(done) != n_trials:
+        fail(f"{label}: {len(done)} of {len(trials)} trials COMPLETE, expected {n_trials}")
+    if not all(all(math.isfinite(v) for v in t.values) for t in done):
+        fail(f"{label}: non-finite objective values")
+
+
+def two_dim_mixed(trial) -> float:
+    """One float and one four-way categorical: the types of ``highdim_mixed``
+    at 2 dims, for the kernels-per-ask comparison."""
+    x = trial.suggest_float("x", -3.0, 3.0)
+    return x * x + {"a": 0.0, "b": 0.3, "c": 0.6, "d": 0.9}[trial.suggest_categorical("c", ["a", "b", "c", "d"])]
+
+
+def phase_tpe(gpu: str) -> dict:
+    """TPE on ``highdim_mixed`` (30 dims) and Branin (2 dims): twin seeded
+    studies on the card, the warm window's ms per trial on the card and in
+    CPU torch, kernels and synchronizing calls an ask."""
+    from optuna_tpu_torch.models.benchmarks import branin, highdim_mixed
+
+    out = {}
+    for label, objective, kwargs in (
+        ("univariate", highdim_mixed, {}),
+        ("multivariate+group+constant liar", highdim_mixed,
+         dict(multivariate=True, group=True, constant_liar=True, warn_independent_sampling=False)),
+        ("branin", branin, {}),
+    ):
+        t0 = time.perf_counter()
+        card, stamps = tpe_study(objective, TPE_TRIALS, **kwargs)
+        twin, _ = tpe_study(objective, TPE_TRIALS, **kwargs)
+        t_card = time.perf_counter()
+        check_tpe_study(f"TPE {label}", card, TPE_TRIALS)
+        if trial_rows(card) != trial_rows(twin):
+            fail(f"TPE {label}: the seeded study run twice on the card differs")
+        cpu, cpu_stamps = tpe_study(objective, TPE_TRIALS, device="cpu", **kwargs)
+        check_tpe_study(f"TPE {label} (CPU)", cpu, TPE_TRIALS)
+        t_cpu = time.perf_counter()
+        kernels, syncs, sites = ask_costs(card, objective)
+        row = {
+            "card_ms": warm_ms(stamps), "cpu_ms": warm_ms(cpu_stamps), "kernels": kernels, "syncs": syncs,
+            "best_card": card.best_value, "best_cpu": cpu.best_value, "study": card,
+        }
+        out[label] = row
+        print(
+            f"TPE {label} ({objective.__name__}, {TPE_TRIALS} trials, seed 0; {gpu}): twin identical trial for "
+            f"trial; ms per trial over trials {TPE_WARMUP}-{TPE_TRIALS - 1}: card {row['card_ms']:.3f}, CPU torch "
+            f"{row['cpu_ms']:.3f}; {kernels} kernels an ask, {syncs:.2f} synchronizing calls an ask "
+            f"({json.dumps(sites)}); best value card {card.best_value:.6f}, CPU {cpu.best_value:.6f}; phase "
+            f"seconds: card and twin {t_card - t0:.1f}, CPU {t_cpu - t_card:.1f}, costs {time.perf_counter() - t_cpu:.1f}"
+        )
+    mixed, _ = tpe_study(two_dim_mixed, 40)
+    k2, _, _ = ask_costs(mixed, two_dim_mixed)
+    k30 = out["univariate"]["kernels"]
+    print(
+        f"TPE kernels an ask: {k30} at 30 dims (25 numerical, 5 categorical), {k2} at 2 dims (1 numerical, "
+        f"1 categorical), {out['branin']['kernels']} at Branin's 2 numerical dims (no categorical batch)"
+    )
+    if abs(k30 - k2) > 2:
+        fail(f"TPE: an ask runs {k30} kernels at 30 dims against {k2} at 2 dims of the same types")
+    if out["branin"]["kernels"] > k30:
+        fail("TPE: Branin's ask runs more kernels than highdim_mixed's")
+    for label, row in out.items():
+        if row["syncs"] > 1:
+            fail(f"TPE {label}: {row['syncs']} synchronizing calls an ask, expected the one read")
+    out["kernels_2d_mixed"] = k2
+    return out
+
+
+class _Prefix:
+    """The first ``n`` trials of a study, as the sampler's split reads them."""
+
+    def __init__(self, study, n: int) -> None:
+        self._study = study
+        self._trials = study.get_trials(deepcopy=False)[:n]
+
+    def _get_trials(self, deepcopy=False, states=None, use_cache=False):
+        return [t for t in self._trials if states is None or t.state in states]
+
+    def __getattr__(self, name):
+        return getattr(self._study, name)
+
+
+def phase_tpe_asks(label: str, study, joint: bool) -> None:
+    """``TPE_ASKS`` asks packed from ``study``'s own history (its last
+    ``TPE_ASKS`` prefixes), each run on the card and on the CPU with the same
+    packed inputs and the same draws: the same chosen candidate, scores
+    within ``TPE_SCORE_TOL``; where the choice differs the two best scores
+    must be within the tolerance (a near tie), and those asks are counted."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import TPESampler
+    from optuna_tpu_torch.samplers._tpe import _kernels
+
+    card_sampler = study.sampler
+    cpu_sampler = TPESampler(seed=0, device="cpu", multivariate=joint)
+    p = card_sampler._parzen_estimator_parameters
+    trials = study.get_trials(deepcopy=False)
+    space = dict(trials[-1].distributions)
+    devices = {"card": card_sampler.device, "cpu": torch.device("cpu")}
+    specs = {"card": card_sampler._univariate_space_spec(space), "cpu": cpu_sampler._univariate_space_spec(space)}
+    widths = torch.as_tensor(specs["cpu"]["highs"] - specs["cpu"]["lows"], dtype=torch.float64)
+    rng = np.random.RandomState(0)
+    states = (ot.TrialState.COMPLETE, ot.TrialState.PRUNED)
+    near_ties = score_gap = cand_gap = 0.0
+    fn = _kernels.sample_and_score_from_obs if joint else _kernels.sample_univariate_from_obs
+    real_score = _kernels._score
+    for n in range(len(trials) - TPE_ASKS, len(trials)):
+        prefix = _Prefix(study, n)
+        below_t, above_t = card_sampler._split(prefix, space, states, False)
+        spec = specs["cpu"]
+        sets = [card_sampler._pack_observations(prefix, spec, below_t, True),
+                card_sampler._pack_observations(prefix, spec, above_t, False)]
+        seed = int(rng.randint(0, 2**31 - 1))
+        shape = (seed, len(spec["num_items"]), len(spec["cat_items"]), card_sampler._n_ei_candidates,
+                 len(sets[0][2]), spec["cat_cmax"], torch.device("cpu"))
+        draws = _kernels.joint_draws(*shape) if joint else _kernels.univariate_draws(*shape)
+        outs = {}
+        for side, dev in devices.items():
+            spec = specs[side]
+            below, above = _kernels.upload_obs(
+                sets, spec["lows"], spec["highs"], spec["n_choices"], p.prior_weight, p.consider_magic_clip,
+                spec["space"].dist_mats is not None, dev,
+            )
+            moved = (
+                _kernels.Draws(*(t.to(dev) for t in draws)) if joint
+                else tuple(_kernels.Draws(*(t.to(dev) for t in d)) for d in draws)
+            )
+            captured = []
+            _kernels._score = lambda b, a, d: captured.append(real_score(b, a, d)) or captured[-1]  # noqa: E731
+            try:
+                fn(below, above, spec["space"], moved, p.consider_endpoints)
+            finally:
+                _kernels._score = real_score
+            outs[side] = [tuple(t.cpu() for t in c) for c in captured]
+        for (xn_c, xc_c, sc_c), (xn_g, xc_g, sc_g) in zip(outs["cpu"], outs["card"]):
+            if not torch.equal(torch.isfinite(sc_c), torch.isfinite(sc_g)) or not torch.equal(xc_c, xc_g):
+                fail(f"TPE asks {label}: card and CPU differ in a categorical sample or a non-finite score")
+            fin = torch.isfinite(sc_c)
+            rel = (sc_c[fin].double() - sc_g[fin].double()).abs() / sc_c[fin].double().abs().clamp(min=1.0)
+            score_gap = max(score_gap, float(rel.max()) if rel.numel() else 0.0)
+            if xn_c.shape[2]:
+                w = widths[None, None, :] if joint else widths[:, None, None]
+                cand_gap = max(cand_gap, float(((xn_c.double() - xn_g.double()).abs() / w).max()))
+            best_c, best_g = sc_c.argmax(dim=1), sc_g.argmax(dim=1)
+            for q in torch.nonzero(best_c != best_g).flatten().tolist():
+                gap = max(float(sc_c[q, best_c[q]] - sc_c[q, best_g[q]]), float(sc_g[q, best_g[q]] - sc_g[q, best_c[q]]))
+                if gap > TPE_SCORE_TOL * max(1.0, abs(float(sc_c[q, best_c[q]]))):
+                    fail(f"TPE asks {label}: the card and the CPU choose apart at history {n} by {gap:.3e}")
+                near_ties += 1
+    if score_gap > TPE_SCORE_TOL or cand_gap > TPE_CAND_TOL:
+        fail(f"TPE asks {label}: card against CPU, scores {score_gap:.3e} apart, candidates {cand_gap:.3e}")
+    print(
+        f"TPE asks {label}: {TPE_ASKS} asks from the study's history (prefixes {len(trials) - TPE_ASKS}-"
+        f"{len(trials) - 1}), card against CPU with the same inputs and draws: every choice equal but "
+        f"{int(near_ties)} near tie(s) (best scores within {TPE_SCORE_TOL:.0e}); max score gap {score_gap:.3e} "
+        f"(relative), max candidate gap {cand_gap:.3e} of a width (tolerances {TPE_SCORE_TOL:.0e}, "
+        f"{TPE_CAND_TOL:.0e})"
+    )
+
+
+def host_ranks(values: np.ndarray) -> np.ndarray:
+    """Full non-domination ranks by the host's NumPy peeling."""
+    ranks = np.full(len(values), -1, dtype=np.int64)
+    remaining, rank = np.arange(len(values)), 0
+    while len(remaining):
+        vals = values[remaining]
+        dom = np.all(vals[:, None] <= vals[None], axis=2) & np.any(vals[:, None] < vals[None], axis=2)
+        dominated = dom.any(axis=0)
+        ranks[remaining[~dominated]] = rank
+        remaining, rank = remaining[dominated], rank + 1
+    return ranks
+
+
+def phase_motpe(nds, gpu: str) -> dict:
+    """MOTPE (``TPESampler(seed=0)`` on a two-objective study) on ZDT1, 30
+    variables, 1024 trials: from 512 complete trials every ask's split ranks
+    through K2 on the card, and none before; the first such ranking equals
+    the host's; the seeded study run twice is identical."""
+    import optuna_tpu_torch.study._multi_objective as mo
+    from optuna_tpu_torch.models.benchmarks import zdt1
+
+    first: dict = {}
+    real = mo._fast_non_domination_rank
+
+    def spy(values, **kwargs):
+        ranks = real(values, **kwargs)
+        if not first and len(values) >= mo._DEVICE_RANK_MIN_POINTS:
+            first.update(values=np.array(values), ranks=ranks.copy())
+        return ranks
+
+    after: list[int] = []
+    mo._fast_non_domination_rank = spy
+    try:
+        study, stamps = tpe_study(
+            lambda t: zdt1(t, dim=ZDT_DIM), MOTPE_TRIALS, directions=["minimize", "minimize"],
+            callbacks=[lambda s, t: after.append(nds.RANK_LAUNCHES)],
+        )
+    finally:
+        mo._fast_non_domination_rank = real
+    launches = nds.RANK_LAUNCHES
+    check_tpe_study("MOTPE", study, MOTPE_TRIALS)
+    per_ask = np.diff([0, *after])  # trial t's ask saw t complete trials
+    early, late = per_ask[: mo._DEVICE_RANK_MIN_POINTS], per_ask[mo._DEVICE_RANK_MIN_POINTS:]
+    if early.any() or not (late >= 1).all():
+        fail(f"MOTPE: K2 launched before 512 complete trials ({int(early.sum())}) or missed an ask from there "
+             f"({int((late < 1).sum())} asks without a launch)")
+    if not first or not np.array_equal(first["ranks"], host_ranks(first["values"])):
+        fail("MOTPE: K2's ranks at the first ask from 512 trials differ from the host's")
+    twin, _ = tpe_study(lambda t: zdt1(t, dim=ZDT_DIM), MOTPE_TRIALS, directions=["minimize", "minimize"])
+    if trial_rows(study) != trial_rows(twin):
+        fail("MOTPE: the seeded study run twice on the card differs")
+    kernels, syncs, sites = ask_costs(study, lambda t: zdt1(t, dim=ZDT_DIM), asks=3)
+    ms = warm_ms(stamps, warmup=mo._DEVICE_RANK_MIN_POINTS)
+    early_ms = (stamps[mo._DEVICE_RANK_MIN_POINTS - 1] - stamps[TPE_WARMUP - 1]) / (
+        mo._DEVICE_RANK_MIN_POINTS - TPE_WARMUP) * 1e3
+    print(
+        f"MOTPE ZDT1 (d={ZDT_DIM}, {MOTPE_TRIALS} trials, seed 0; {gpu}): twin identical; K2 ranked on every one "
+        f"of the {len(late)} asks from 512 complete trials ({int(late.sum())} launches) and on none before; the "
+        f"first ranking ({len(first['values'])} points, {int(first['ranks'].max()) + 1} fronts) equals the host's; "
+        f"ms per trial: {early_ms:.3f} over trials {TPE_WARMUP}-{mo._DEVICE_RANK_MIN_POINTS - 1} (host split), "
+        f"{ms:.3f} over trials {mo._DEVICE_RANK_MIN_POINTS}-{MOTPE_TRIALS - 1} (K2 split); an ask past 1024 "
+        f"trials: {kernels} kernels, {syncs:.2f} synchronizing calls ({json.dumps(sites)})"
+    )
+    return {"launches": launches, "ms": ms, "early_ms": early_ms}
+
+
+def phase_hyperband(gpu: str) -> None:
+    """A TPE study on the card under HyperbandPruner: every trial's bracket
+    is the crc32 rule's, and every trial list the sampler reads through
+    ``_filter_study`` holds only the asking trial's bracket."""
+    import zlib
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.pruners import HyperbandPruner, _hyperband
+
+    seen: list = []
+    real = _hyperband._BracketStudy._get_trials
+
+    def spy(self, *args, **kwargs):
+        trials = real(self, *args, **kwargs)
+        seen.append(all(self._pruner._get_bracket_id(self._study, t) == self._bracket_id for t in trials))
+        return trials
+
+    def stepped(trial) -> float:
+        x = trial.suggest_float("x", 0.0, 1.0)
+        k = trial.suggest_int("k", 0, 3)
+        for step in range(9):
+            trial.report(x + 0.1 * step + 0.01 * k, step)
+            if trial.should_prune():
+                raise ot.TrialPruned()
+        return x + 0.8 + 0.01 * k
+
+    _hyperband._BracketStudy._get_trials = spy
+    try:
+        pruner = HyperbandPruner(min_resource=1, max_resource=9, reduction_factor=3)
+        study, _ = tpe_study(stepped, 120, study_name="hyperband-tpe", pruner=pruner)
+    finally:
+        _hyperband._BracketStudy._get_trials = real
+
+    def crc32_bracket(number: int) -> int:
+        n = zlib.crc32(f"hyperband-tpe_{number}".encode()) % pruner._total_trial_allocation_budget
+        for bracket_id, budget in enumerate(pruner._trial_allocation_budgets):
+            n -= budget
+            if n < 0:
+                return bracket_id
+        raise AssertionError
+
+    trials = study.get_trials(deepcopy=False)
+    brackets = [pruner._get_bracket_id(study, t) for t in trials]
+    if brackets != [crc32_bracket(t.number) for t in trials]:
+        fail("Hyperband: a trial's bracket differs from the crc32 rule")
+    if not seen or not all(seen):
+        fail(f"Hyperband: the sampler read trials of another bracket ({seen.count(False)} of {len(seen)} reads)")
+    pruned = sum(t.state == ot.TrialState.PRUNED for t in trials)
+    print(
+        f"Hyperband + TPE on the card ({gpu}): 120 trials, {pruner._n_brackets} brackets "
+        f"({[brackets.count(b) for b in range(pruner._n_brackets)]} trials), {pruned} pruned; every bracket "
+        f"equals the crc32 rule; {len(seen)} trial reads through the bracket view, all inside the asking "
+        f"trial's bracket"
+    )
+
+
+def phase_default() -> None:
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import branin
+    from optuna_tpu_torch.samplers import TPESampler
+
+    study = ot.create_study()
+    study.optimize(branin, n_trials=12)
+    if not isinstance(study.sampler, TPESampler) or study.sampler.device.type != "cuda":
+        fail(f"create_study() gives {type(study.sampler).__name__} on {getattr(study.sampler, 'device', None)}")
+    print(f"default: create_study() with one objective samples with TPESampler on {study.sampler.device}")
+
+
+
 def main() -> None:
     try:
         import torch
@@ -1156,9 +1557,23 @@ def main() -> None:
     scan_sparse = phase_scan_sparse(k1_count, profile_asks)
     scan = counts()
     print(f"scan phases 8-11: {time.perf_counter() - t_scan:.1f} s, set-up and checks included")
+    t_tpe = time.perf_counter()
+    reset()
+    tpe = phase_tpe(gpu)
+    phase_tpe_asks("univariate", tpe["univariate"]["study"], joint=False)
+    phase_tpe_asks("multivariate", tpe["multivariate+group+constant liar"]["study"], joint=True)
+    phase_hyperband(gpu)
+    phase_default()
+    tpe_counts = counts()  # the single-objective TPE paths run no kernel of the repo
+    reset()
+    motpe = phase_motpe(wrappers["nds_rank"], gpu)
+    motpe_counts = counts()
+    print(f"TPE phases 12-16: {time.perf_counter() - t_tpe:.1f} s, set-up and checks included")
+    if any(tpe_counts.values()):
+        fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"],
-        "nds_rank": nsga["nds_rank"],
+        "nds_rank": nsga["nds_rank"] + motpe["launches"],
         "wfg_stack": hv["wfg_stack"],
     }
     print(
@@ -1166,7 +1581,7 @@ def main() -> None:
         f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv}; scan {scan}: K1 fresh "
         f"{scan_fresh['k1']}, exact {scan_exact['k1']}, sparse {scan_sparse['k1']} over "
         f"{scan_sparse['chunks']} chunks and {int(scan_sparse['gauges']['device.gp.inducing_swaps.total'])} swaps"
-        f"{', profiled chunks included' if profile_asks else ''})"
+        f"{', profiled chunks included' if profile_asks else ''}; MOTPE K2 {motpe['launches']})"
     )
     for name, count in launches.items():
         if count < 1:
@@ -1177,11 +1592,12 @@ def main() -> None:
         fail(f"nds_rank launched {launches['nds_rank']} times over NSGA-II generations 2 and 3")
     if launches["wfg_stack"] != 2:
         fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
-    per_node = gp["wfg_limit_filter"] + nsga["wfg_limit_filter"] + hv["wfg_limit_filter"] + scan["wfg_limit_filter"]
+    paths = (gp, nsga, hv, scan, motpe_counts)
+    per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
     launches["wfg_limit_filter"] = per_node
-    matrix = gp["nds"] + nsga["nds"] + hv["nds"] + scan["nds"]
+    matrix = sum(c["nds"] for c in paths)
     if matrix:
         fail(f"the dominance-matrix kernel launched {matrix} times on the paths: the ranking kernels rank")
     launches["nds"] = matrix
@@ -1194,7 +1610,9 @@ def main() -> None:
         f"sparse median {float(np.median(sparse_s)):.4f} s/ask, NSGA-II {nsga_s:.2f} s, "
         f"hypervolume {hv_s:.2f} s, scan {scan_exact['s_per_chunk']:.3f} s per exact chunk "
         f"({scan_exact['trials_per_s']:.2f} trials/s), {scan_sparse['s_per_chunk']:.3f} s per sparse chunk "
-        f"({scan_sparse['trials_per_s']:.2f} trials/s), total {time.perf_counter() - t_start:.1f} s"
+        f"({scan_sparse['trials_per_s']:.2f} trials/s), TPE highdim_mixed {tpe['univariate']['card_ms']:.3f} "
+        f"ms/trial (CPU torch {tpe['univariate']['cpu_ms']:.3f}), MOTPE {motpe['ms']:.3f} ms/trial from 512 "
+        f"trials, total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,8 +1,11 @@
 """optuna_tpu_torch — the PyTorch/CUDA port of ``optuna_tpu``.
 
-The port runs beside the JAX package, which stays the reference. Three
+The port runs beside the JAX package, which stays the reference. Four
 paths are ported, on in-memory storage:
 
+* **TPE**: ``TPESampler``, the default sampler of a single-objective
+  study (univariate, multivariate and group, constant liar, constraints,
+  MOTPE), with every pruner of the reference;
 * **GP per trial**: ``create_study`` → ``Study.optimize`` → ``GPSampler``
   (exact engine, and the SGPR engine above ``n_exact_max``);
 * **multi-objective**: ``NSGAIISampler`` (the default sampler of a
@@ -13,8 +16,9 @@ paths are ported, on in-memory storage:
   (``parallel.VectorizedObjective``), exact and SGPR chunks.
 
 Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
-(``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the NSGA-II
-ranking, the WFG hypervolume stack. Numerical entry points run on ``cuda``
+(``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the
+non-domination ranking (NSGA-II, and MOTPE's split), the WFG hypervolume
+stack; TPE's plane is plain torch ops batched over the dimensions. Numerical entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; with no GPU they raise instead
 of moving to the CPU.
 """

@@ -1,10 +1,12 @@
 """Benchmark objectives (port of ``optuna_tpu/models/benchmarks.py``).
 
-The port carries Hartmann-20D, BASELINE.md configuration #2: Hartmann-6 on
-the first six of twenty unit-interval parameters, the other fourteen inert,
-as a define-by-run objective and as the batched objectives of the scan loop
-(``hartmann6_torch``, ``hartmann20_torch``); and ZDT1-3, configuration #4's
-two-objective problems.
+The port carries Branin, BASELINE.md configuration #1 (TPE); Hartmann-20D,
+configuration #2: Hartmann-6 on the first six of twenty unit-interval
+parameters, the other fourteen inert, as a define-by-run objective and as
+the batched objectives of the scan loop (``hartmann6_torch``,
+``hartmann20_torch``); ZDT1-3, configuration #4's two-objective problems;
+and ``highdim_mixed``, the 30-parameter mixed space of ``bench.py --config
+tpe_highdim``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,28 @@ import math
 
 import numpy as np
 import torch
+
+# ---------------------------------------------------------------- Branin (2D)
+
+_BRANIN_A = 1.0
+_BRANIN_B = 5.1 / (4 * math.pi**2)
+_BRANIN_C = 5 / math.pi
+_BRANIN_R = 6.0
+_BRANIN_S = 10.0
+_BRANIN_T = 1 / (8 * math.pi)
+
+
+def branin(trial) -> float:
+    x1 = trial.suggest_float("x1", -5.0, 10.0)
+    x2 = trial.suggest_float("x2", 0.0, 15.0)
+    return (
+        _BRANIN_A * (x2 - _BRANIN_B * x1**2 + _BRANIN_C * x1 - _BRANIN_R) ** 2
+        + _BRANIN_S * (1 - _BRANIN_T) * math.cos(x1)
+        + _BRANIN_S
+    )
+
+
+# ------------------------------------------------------------- Hartmann6 (6D)
 
 _H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
 _H6_A = np.array(
@@ -98,3 +122,27 @@ def zdt3(trial, dim: int = 30):
     g = _zdt_g(xs)
     f1 = float(xs[0])
     return f1, g * (1 - math.sqrt(f1 / g) - (f1 / g) * math.sin(10 * math.pi * f1))
+
+
+# -------------------------------------------------- high-dim mixed space
+
+
+def highdim_mixed(trial) -> float:
+    """30-parameter mixed search space: 15 uniform floats, 5 log floats, 5
+    ints in [1, 64] and 5 four-way categoricals. The per-trial sampler cost
+    at a realistic HPO width: univariate TPE samples every dimension in one
+    batched device program."""
+    total = 0.0
+    for i in range(15):
+        x = trial.suggest_float(f"x{i}", -3.0, 3.0)
+        total += (x - 0.3 * (i % 5)) ** 2
+    for i in range(5):
+        lr = trial.suggest_float(f"log{i}", 1e-5, 1e-1, log=True)
+        total += (math.log10(lr) + 2.0 + 0.2 * i) ** 2
+    for i in range(5):
+        k = trial.suggest_int(f"n{i}", 1, 64)
+        total += 0.01 * (k - 8 * (i + 1)) ** 2
+    for i in range(5):
+        c = trial.suggest_categorical(f"c{i}", ["a", "b", "c", "d"])
+        total += {"a": 0.0, "b": 0.3, "c": 0.6, "d": 0.9}[c]
+    return total

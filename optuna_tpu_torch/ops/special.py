@@ -1,4 +1,4 @@
-"""Special functions for the GP acquisition (port of ``optuna_tpu/ops/special.py``).
+"""Special functions for the GP acquisition and TPE (port of ``optuna_tpu/ops/special.py``).
 
 Same piecewise closed forms as the reference, written with torch ops so the
 port and the reference round alike.
@@ -55,3 +55,10 @@ def log_h(z: torch.Tensor) -> torch.Tensor:
     # z*r is in (-1, 0): log1p stays finite; add log phi(z).
     tail = -0.5 * zt * zt - _LOG_SQRT_2PI + torch.log1p(zt * r)
     return torch.where(small, tail, direct)
+
+
+def logsumexp(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.logsumexp``: a slice of all ``-inf`` gives ``-inf`` (not NaN),
+    as ``jax.scipy.special.logsumexp`` does; TPE's padded mixture components
+    carry ``-inf`` log weights."""
+    return torch.logsumexp(a, dim=dim)

@@ -1,7 +1,7 @@
 """Samplers package (reference ``optuna_tpu/samplers/__init__.py``).
 
-GPSampler and NSGAIISampler load lazily so that importing the package does
-no numerical set-up.
+GPSampler, NSGAIISampler, TPESampler and MOTPESampler load lazily so that
+importing the package does no numerical set-up.
 """
 
 from __future__ import annotations
@@ -10,20 +10,23 @@ from optuna_tpu_torch.samplers._base import BaseSampler
 from optuna_tpu_torch.samplers._lazy_random_state import LazyRandomState
 from optuna_tpu_torch.samplers._random import RandomSampler
 
-__all__ = ["BaseSampler", "GPSampler", "LazyRandomState", "NSGAIISampler", "RandomSampler"]
+_LAZY = {
+    "GPSampler": "optuna_tpu_torch.samplers._gp.sampler",
+    "MOTPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
+    "NSGAIISampler": "optuna_tpu_torch.samplers.nsgaii",
+    "TPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
+}
+
+__all__ = ["BaseSampler", "LazyRandomState", "RandomSampler", *sorted(_LAZY)]
 
 
 def __getattr__(name: str):
-    if name == "GPSampler":
-        from optuna_tpu_torch.samplers._gp.sampler import GPSampler
+    if name in _LAZY:
+        import importlib
 
-        return GPSampler
-    if name == "NSGAIISampler":
-        from optuna_tpu_torch.samplers.nsgaii import NSGAIISampler
-
-        return NSGAIISampler
+        return getattr(importlib.import_module(_LAZY[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__() -> list[str]:
-    return sorted(set(globals()) | {"GPSampler", "NSGAIISampler"})
+    return sorted(set(globals()) | set(_LAZY))

@@ -392,17 +392,16 @@ class Study:
 
 
 def _default_sampler(directions: list[StudyDirection]) -> "BaseSampler":
-    """NSGA-II for several objectives, as in the reference
-    (``optuna_tpu/study/study.py:574-584``). The single-objective default,
-    TPE, is not ported yet, and no other sampler stands in for it."""
+    """TPE for one objective, NSGA-II for several, as in the reference
+    (``optuna_tpu/study/study.py:574-584``). TPE's device is the card,
+    resolved at its first ask."""
     if len(directions) > 1:
         from optuna_tpu_torch.samplers import NSGAIISampler
 
         return NSGAIISampler()
-    raise NotImplementedError(
-        "optuna_tpu_torch has no single-objective default sampler yet: TPE is "
-        "ROADMAP.md item A4. Pass sampler= explicitly (GPSampler or RandomSampler)."
-    )
+    from optuna_tpu_torch.samplers import TPESampler
+
+    return TPESampler()
 
 
 # ---------------------------------------------------------------------- module

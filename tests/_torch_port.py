@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -25,3 +27,85 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     return torch.device("cuda", 0)
+
+
+# ------------------------------------------------- TPE: the reference's draws
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_tpe_draw_programs():
+    """The reference's TPE draws (``optuna_tpu/samplers/_tpe/_kernels.py``:
+    ``PRNGKey(seed)`` split per numerical dim, ``fold_in(key, 1)`` split per
+    categorical dim, each key split in 3 for component, uniform and
+    categorical; ``jax.random.categorical`` is ``argmax(logits + gumbel)``),
+    as jit programs static in the shapes."""
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+
+    @partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+    def univariate(seed, n_num, n_cat, s, b, c):
+        key = jax.random.PRNGKey(seed)
+
+        def num(k):
+            k_comp, k_num, _ = jax.random.split(k, 3)
+            return jax.random.gumbel(k_comp, (s, b), jnp.float32), jax.random.uniform(k_num, (s, 1))
+
+        def cat(k):
+            k_comp, _, k_cat = jax.random.split(k, 3)
+            return jax.random.gumbel(k_comp, (s, b), jnp.float32), jax.random.gumbel(k_cat, (s, 1, c), jnp.float32)
+
+        g_num, u_num = jax.vmap(num)(jax.random.split(key, n_num)) if n_num else (
+            jnp.zeros((0, s, b)), jnp.zeros((0, s, 1)))
+        g_comp, g_cat = jax.vmap(cat)(jax.random.split(jax.random.fold_in(key, 1), n_cat)) if n_cat else (
+            jnp.zeros((0, s, b)), jnp.zeros((0, s, 1, c)))
+        return g_num, u_num, g_comp, g_cat
+
+    @partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+    def joint(seed, n_num, n_cat, s, b, c):
+        k_comp, k_num, k_cat = jax.random.split(jax.random.PRNGKey(seed), 3)
+        return (
+            jax.random.gumbel(k_comp, (s, b), jnp.float32),
+            jax.random.uniform(k_num, (s, n_num)),
+            jax.random.gumbel(k_cat, (s, n_cat, c), jnp.float32),
+        )
+
+    return univariate, joint
+
+
+def jax_univariate_draws(seed, n_num, n_cat, n_samples, n_components, cmax, device):
+    """The reference's univariate draws for ``seed``, as the port's
+    ``univariate_draws`` lays them out."""
+    from optuna_tpu_torch.samplers._tpe._kernels import Draws
+
+    univariate, _ = _jax_tpe_draw_programs()
+    g_num, u_num, g_comp, g_cat = (
+        torch.as_tensor(np.array(a)).to(device)
+        for a in univariate(np.uint32(seed), n_num, n_cat, n_samples, n_components, cmax)
+    )
+    return (
+        Draws(g_num, u_num, g_num.new_zeros((n_num, n_samples, 0, cmax))),
+        Draws(g_comp, g_comp.new_zeros((n_cat, n_samples, 0)), g_cat),
+    )
+
+
+def jax_joint_draws(seed, n_num, n_cat, n_samples, n_components, cmax, device):
+    """The reference's multivariate (and top-k) draws for ``seed``."""
+    from optuna_tpu_torch.samplers._tpe._kernels import Draws
+
+    _, joint = _jax_tpe_draw_programs()
+    comp, uniform, cat = (
+        torch.as_tensor(np.array(a))[None].to(device)
+        for a in joint(np.uint32(seed), n_num, n_cat, n_samples, n_components, cmax)
+    )
+    return Draws(comp, uniform, cat)
+
+
+@pytest.fixture
+def reference_tpe_draws(monkeypatch):
+    """Hand the reference's draws to every TPE ask of the port."""
+    from optuna_tpu_torch.samplers._tpe import _kernels
+
+    monkeypatch.setattr(_kernels, "univariate_draws", jax_univariate_draws)
+    monkeypatch.setattr(_kernels, "joint_draws", jax_joint_draws)

@@ -93,10 +93,12 @@ def test_default_device_is_cuda_and_never_slips_to_the_cpu():
 
 
 def test_create_study_without_a_sampler_names_the_roadmap_item():
+    # ROADMAP item A4 (TPE) is ported: the single-objective default is
+    # TPESampler, whose device (the card) is resolved at its first ask.
     import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import TPESampler
 
-    with pytest.raises(NotImplementedError, match="A4"):
-        ot.create_study()
+    assert isinstance(ot.create_study().sampler, TPESampler)
 
 
 MULTI_OBJECTIVE_MODULES = [

@@ -116,8 +116,9 @@ def test_default_sampler_of_a_multi_objective_study_is_nsga2():
     study = optuna_tpu_torch.create_study(directions=["minimize", "maximize"])
     assert isinstance(study.sampler, NSGAIISampler)
     assert study.sampler._device is None  # resolved only where a large pool is ranked
-    with pytest.raises(NotImplementedError, match="A4"):
-        optuna_tpu_torch.create_study(direction="minimize")
+    from optuna_tpu_torch.samplers import TPESampler
+
+    assert isinstance(optuna_tpu_torch.create_study(direction="minimize").sampler, TPESampler)
 
 
 def test_default_nsga2_ranks_small_pools_without_a_card():
