@@ -72,12 +72,32 @@ Phases (any failure exits non-zero and prints no result line):
     before; the first ranking equals the host's; the twin is identical.
 17. Host and card times at the reference's routing thresholds (rank at
     256/512/1024 points, WFG at fronts of 32 and 64).
+18. Threads on the card (``optimize(n_jobs=...)``): TPE on ``highdim_mixed``,
+    300 trials at ``n_jobs`` 1 and 4 with ``MaxTrialsCallback`` and the
+    retry callback attached (numbers dense, every trial COMPLETE and in its
+    distributions, no two trials alike), and a threaded study whose
+    objective raises once (exactly one retry clone, with ``failed_trial``
+    and ``retry_history``); GPSampler on Hartmann-20D from 4000 seeded
+    trials, one untimed warm-up ask, then warm sparse asks 2 sequential, 4
+    at ``n_jobs=2``, 2 sequential (K1 at least 4 times from the worker
+    threads); NSGA-II on ZDT1 at population
+    256, 768 trials at ``n_jobs=4`` (K2 from the worker threads). ms per
+    trial by host clock.
+19. Wrapping samplers on the card: ``PartialFixedSampler({"x0": 0.5},
+    GPSampler())`` from 1000 seeded trials, 2 asks on ``cuda``; Grid over
+    3x3x4 stops at 36 trials, each point once; BruteForce enumerates 12
+    leaves; ``GuardedSampler(TPESampler(seed=0))`` on Branin, 60 trials,
+    identical to the unwrapped run; a NaN proposal degrades exactly trial
+    30 (``sampler_fallback:relative``); a ``KernelBuildError`` from the
+    wrapped sampler propagates, with no fallback.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16) and read just after it; every kernel must have
-launched on its path, the single-objective TPE phases none, and the
+6, 7, 9-11, 12-15, 16, 18-19) and read just after it; every kernel must
+have launched on its path, the single-objective TPE phases none, and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
-kernels rank, the stack kernel runs every node). The line before the last
+kernels rank, the stack kernel runs every node). The counters are raised
+under a lock in each wrapper, so the threaded launches of phase 18 count
+exactly. The line before the last
 is the kernel table as JSON (every kernel, the two check kernels with their
 0 launches); the last line is the device summary.
 """
@@ -1497,6 +1517,357 @@ def phase_default() -> None:
 
 
 
+# ------------------------------------------------------- the runtime (18-19)
+
+RUNTIME_JOBS = 4  # n_jobs of the threaded TPE and NSGA-II studies
+NSGA_THREADED_TRIALS = 768  # generations 0-2 at population 256: generation 2's selection ranks 512 (K2)
+# The threaded retry study: at least RETRY_TRIALS COMPLETE trials, at most
+# RETRY_BUDGET trials; trial RETRY_AT's objective raises once.
+RETRY_TRIALS, RETRY_BUDGET, RETRY_AT = 40, 200, 12
+GRID_POINTS = {"a": [0, 1, 2], "b": [-1.0, 0.0, 1.0], "c": ["p", "q", "r", "s"]}  # 3 x 3 x 4
+GUARDED_TRIALS, GUARDED_NAN_AT, GUARDED_RAISE_AT = 60, 30, 5
+# Trial 0 has no relative search space and asks no relative suggestion, so
+# FaultySampler's suggestion #k is trial k + 1.
+
+
+class ThreadLog:
+    """Wraps an objective to record the names of the threads that ran it and
+    each call's host-clock seconds (the ask happens inside, at the first
+    suggest)."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.names: set[str] = set()
+        self.seconds: list[float] = []
+        self._lock = threading.Lock()
+
+    def wrap(self, objective):
+        import threading
+
+        def run(trial):
+            with self._lock:
+                self.names.add(threading.current_thread().name)
+            t0 = time.perf_counter()
+            try:
+                return objective(trial)
+            finally:
+                with self._lock:
+                    self.seconds.append(time.perf_counter() - t0)
+
+        return run
+
+    def spread_ms(self) -> str:
+        ms = np.asarray(self.seconds) * 1e3
+        return f"median {np.median(ms):.1f} ms, p99 {np.percentile(ms, 99):.1f} ms, max {ms.max():.1f} ms"
+
+    def workers_only(self) -> bool:
+        import threading
+
+        return bool(self.names) and threading.main_thread().name not in self.names
+
+
+def in_distributions(trial) -> bool:
+    return all(d._contains(d.to_internal_repr(trial.params[k])) for k, d in trial.distributions.items())
+
+
+def retry_on_fail():
+    """``RetryFailedTrialCallback`` as an optimize callback: it clones only
+    FAIL trials (it is written as a storage's failed-trial callback)."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.storages import RetryFailedTrialCallback
+
+    retry = RetryFailedTrialCallback(max_retry=1)
+    return lambda study, trial: retry(study, trial) if trial.state == ot.TrialState.FAIL else None
+
+
+def check_threaded(label: str, study, n_trials: int, log: ThreadLog | None, distinct: bool = True) -> list:
+    """Every trial COMPLETE and inside its distributions, numbers dense, with
+    ``distinct`` no two trials alike (NSGA-II copies a parent now and then by
+    design), and, for a threaded run, every objective on a worker thread.
+    Distinct points do not show that the workers reseeded: they share one
+    sampler and draw one after another from its stream either way
+    (``tests/test_torch_runtime.py`` spies on the reseed)."""
+    import optuna_tpu_torch as ot
+
+    trials = study.get_trials(deepcopy=False)
+    if sorted(t.number for t in trials) != list(range(n_trials)):
+        fail(f"{label}: trial numbers are not 0-{n_trials - 1}")
+    if not all(t.state == ot.TrialState.COMPLETE for t in trials):
+        fail(f"{label}: {sum(t.state != ot.TrialState.COMPLETE for t in trials)} trials not COMPLETE")
+    if not all(in_distributions(t) and all(math.isfinite(v) for v in t.values) for t in trials):
+        fail(f"{label}: a trial is outside its distributions or non-finite")
+    if distinct and len({tuple(sorted(t.params.items())) for t in trials}) != n_trials:
+        fail(f"{label}: two trials have the same params")
+    if log is not None and (not log.workers_only() or len(log.names) < 2):
+        fail(f"{label}: the objectives ran on {sorted(log.names)}, expected worker threads only")
+    return trials
+
+
+def phase_threads_tpe(gpu: str) -> dict:
+    """TPE on ``highdim_mixed`` at ``n_jobs`` 1 and 4 on the card, with
+    ``MaxTrialsCallback`` and the retry callback attached; then a threaded
+    study whose objective raises once: exactly one retry clone."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import highdim_mixed
+    from optuna_tpu_torch.samplers import TPESampler
+    from optuna_tpu_torch.study import MaxTrialsCallback
+
+    out = {}
+    for jobs in (1, RUNTIME_JOBS):
+        log = ThreadLog()
+        stamps: list[float] = []
+        study = ot.create_study(sampler=TPESampler(seed=0))
+        objective = log.wrap(highdim_mixed)
+        t0 = time.perf_counter()
+        study.optimize(
+            objective, n_trials=TPE_TRIALS, n_jobs=jobs,
+            callbacks=[MaxTrialsCallback(TPE_TRIALS), retry_on_fail(), lambda s, t: stamps.append(time.perf_counter())],
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_threaded(f"TPE n_jobs={jobs}", study, TPE_TRIALS, log if jobs > 1 else None)
+        if study.sampler.device.type != "cuda":
+            fail(f"TPE n_jobs={jobs} sampled on {study.sampler.device}")
+        out[jobs] = {"ms": seconds / TPE_TRIALS * 1e3, "warm_ms": warm_ms(sorted(stamps)), "threads": len(log.names),
+                     "spread": log.spread_ms()}
+
+    log = ThreadLog()
+    t0 = time.perf_counter()
+    events: dict[str, float] = {}
+
+    def flaky(trial):
+        value = highdim_mixed(trial)
+        if trial.number == RETRY_AT:
+            events["raised"] = time.perf_counter() - t0
+            raise RuntimeError("injected objective failure")
+        return value
+
+    def cloned(study, trial):
+        if trial.state == ot.TrialState.FAIL:
+            events["cloned_at_trials"] = len(study.get_trials(deepcopy=False))
+
+    def stop_once_retried(study, trial):
+        """Stop at RETRY_TRIALS COMPLETE trials once the clone has been
+        claimed: a worker can lag (on an H100 one told its FAIL after 43
+        other trials), and a clone enqueued after the last claim would
+        stay WAITING."""
+        trials = study.get_trials(deepcopy=False)
+        if (sum(t.state == ot.TrialState.COMPLETE for t in trials) >= RETRY_TRIALS
+                and any("failed_trial" in t.system_attrs for t in trials)
+                and not any(t.state == ot.TrialState.WAITING for t in trials)):
+            study.stop()
+
+    study = ot.create_study(sampler=TPESampler(seed=0))
+    study.optimize(log.wrap(flaky), n_trials=RETRY_BUDGET, n_jobs=RUNTIME_JOBS, catch=(RuntimeError,),
+                   callbacks=[retry_on_fail(), cloned, stop_once_retried])
+    trials = study.get_trials(deepcopy=False)
+    failed = [t for t in trials if t.state == ot.TrialState.FAIL]
+    clones = [t for t in trials if "failed_trial" in t.system_attrs]
+    if [t.number for t in failed] != [RETRY_AT] or len(clones) != 1:
+        fail(f"TPE retry: FAIL trials {[t.number for t in failed]}, {len(clones)} clones; expected trial "
+             f"{RETRY_AT} and one clone")
+    clone = clones[0]
+    attrs = clone.system_attrs
+    if (attrs["failed_trial"], attrs["retry_history"], attrs["fixed_params"]) != (
+            RETRY_AT, [RETRY_AT], failed[0].params) or clone.params != failed[0].params:
+        fail(f"TPE retry: the clone's attrs {attrs} do not name trial {RETRY_AT} and its params")
+    complete = sum(t.state == ot.TrialState.COMPLETE for t in trials)
+    if clone.state != ot.TrialState.COMPLETE or complete < RETRY_TRIALS or not log.workers_only():
+        fail(f"TPE retry: clone {clone.state.name}, {complete} of {len(trials)} trials COMPLETE, threads "
+             f"{sorted(log.names)}, {events}")
+    print(
+        f"threads TPE highdim_mixed ({TPE_TRIALS} trials, seed 0, MaxTrialsCallback + retry callback; {gpu}): "
+        f"ms per trial n_jobs=1 {out[1]['ms']:.3f} (trials {TPE_WARMUP}-{TPE_TRIALS - 1}: {out[1]['warm_ms']:.3f}; "
+        f"a trial's objective call {out[1]['spread']}), n_jobs={RUNTIME_JOBS} {out[RUNTIME_JOBS]['ms']:.3f} "
+        f"({out[RUNTIME_JOBS]['warm_ms']:.3f}; {out[RUNTIME_JOBS]['spread']}) on "
+        f"{out[RUNTIME_JOBS]['threads']} worker threads; all COMPLETE, numbers dense, no two trials alike; retry "
+        f"study (stopped once cloned at {complete} COMPLETE of {len(trials)} trials, n_jobs="
+        f"{RUNTIME_JOBS}): trial {RETRY_AT} FAIL (raised at {events['raised']:.3f} s, cloned when "
+        f"{events['cloned_at_trials']} trials existed), its one clone is trial {clone.number} (failed_trial "
+        f"{attrs['failed_trial']}, retry_history {attrs['retry_history']}), COMPLETE"
+    )
+    return out
+
+
+def phase_threads_gp(k1_count) -> dict:
+    """Sparse GP asks on the card from two worker threads, from one
+    4000-trial history. One untimed ask first takes the cold fit and builds
+    the device space; then warm asks run 2 sequential, 4 at ``n_jobs=2``,
+    2 sequential, so that neither way runs only early or only late."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+
+    study = seeded_study(4000)
+    n_history = len(study.get_trials(deepcopy=False))
+    study.optimize(hartmann20, n_trials=1)
+    torch.cuda.synchronize()
+
+    def timed(n_trials: int, jobs: int, objective=hartmann20) -> float:
+        t0 = time.perf_counter()
+        study.optimize(objective, n_trials=n_trials, n_jobs=jobs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    seq_before = timed(2, 1)
+    log = ThreadLog()
+    before = k1_count()
+    thr_s = timed(4, 2, log.wrap(hartmann20))
+    k1 = k1_count() - before
+    seq_after = timed(2, 1)
+    seq_ask = (seq_before + seq_after) / 4
+    thr_ask = thr_s / 4
+    trials = study.get_trials(deepcopy=False)
+    new = trials[n_history:]
+    if len(new) != 9 or not all(t.state == ot.TrialState.COMPLETE for t in new):
+        fail(f"threads GP: {len(new)} new trials, states {[t.state.name for t in new]}")
+    for t in new:
+        if not (math.isfinite(t.value) and all(0.0 <= t.params[f"x{i}"] <= 1.0 for i in range(20))):
+            fail(f"threads GP: trial {t.number} is non-finite or out of the box")
+    if not log.workers_only() or len(log.names) != 2:
+        fail(f"threads GP: the objectives ran on {sorted(log.names)}, expected two worker threads")
+    if k1 < 4:
+        fail(f"threads GP: K1 launched {k1} times over the 4 threaded sparse asks, expected >= 4")
+    print(
+        f"threads GP sparse (n={n_history}, Hartmann-20D, one untimed warm-up ask, then warm asks): sequential "
+        f"{seq_before:.3f} s for two before and {seq_after:.3f} s for two after the threaded ones, "
+        f"{seq_ask:.3f} s an ask; four asks at n_jobs=2 {thr_s:.3f} s, {thr_ask:.3f} s an ask "
+        f"(concurrent/sequential {thr_ask / seq_ask:.3f}); K1 {k1} launches from the worker threads "
+        f"{sorted(log.names)}; all COMPLETE, finite, in the box"
+    )
+    return {"seq_ask_s": seq_ask, "thr_ask_s": thr_ask, "k1": k1}
+
+
+def phase_threads_nsga(nds, nsga_s: float) -> dict:
+    """NSGA-II on ZDT1 at population 256 from four worker threads: the
+    selection of generation 2 ranks 512 trials through K2."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import zdt1
+    from optuna_tpu_torch.samplers import NSGAIISampler
+
+    log = ThreadLog()
+    before = nds.RANK_LAUNCHES
+    study = ot.create_study(directions=["minimize", "minimize"],
+                            sampler=NSGAIISampler(seed=0, population_size=NSGA_POP))
+    t0 = time.perf_counter()
+    study.optimize(log.wrap(lambda t: zdt1(t, dim=ZDT_DIM)), n_trials=NSGA_THREADED_TRIALS, n_jobs=RUNTIME_JOBS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ranks = nds.RANK_LAUNCHES - before
+    check_threaded("threads NSGA-II", study, NSGA_THREADED_TRIALS, log, distinct=False)
+    if ranks < 1:
+        fail("threads NSGA-II: the ranking kernels never launched from the worker threads")
+    generations = sorted({t.system_attrs.get("NSGAIISampler:generation") for t in study.get_trials(deepcopy=False)})
+    print(
+        f"threads NSGA-II ZDT1 (population {NSGA_POP}, {NSGA_THREADED_TRIALS} trials, n_jobs={RUNTIME_JOBS}): "
+        f"{seconds / NSGA_THREADED_TRIALS * 1e3:.3f} ms per trial ({seconds:.2f} s; phase 6 at n_jobs=1: "
+        f"{nsga_s / NSGA_TRIALS * 1e3:.3f}); K2 ranked {ranks} times from the worker threads "
+        f"{sorted(log.names)}; generations {generations}; all COMPLETE"
+    )
+    return {"ms": seconds / NSGA_THREADED_TRIALS * 1e3, "ranks": ranks}
+
+
+def fallback_trials(study) -> list[int]:
+    from optuna_tpu_torch.samplers._resilience import SAMPLER_FALLBACK_ATTR_PREFIX
+
+    return [t.number for t in study.get_trials(deepcopy=False)
+            if any(k.startswith(SAMPLER_FALLBACK_ATTR_PREFIX) for k in t.system_attrs)]
+
+
+def phase_wrappers(gpu: str) -> None:
+    """PartialFixed over GP on the card, Grid and BruteForce to exhaustion,
+    GuardedSampler over TPE on the card (free when fault-free; a NaN
+    proposal degrades its one trial; a kernel build failure propagates)."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import branin, hartmann20
+    from optuna_tpu_torch.ops.kernels._nvcc import KernelBuildError
+    from optuna_tpu_torch.samplers import (
+        BruteForceSampler, GPSampler, GridSampler, GuardedSampler, PartialFixedSampler, TPESampler,
+    )
+    from optuna_tpu_torch.testing.fault_injection import FaultySampler
+
+    study = seeded_study(1000)
+    n_history = len(study.get_trials(deepcopy=False))
+    study.sampler = PartialFixedSampler({"x0": 0.5}, GPSampler(seed=0))
+    t0 = time.perf_counter()
+    study.optimize(hartmann20, n_trials=2)
+    pf_s = time.perf_counter() - t0
+    new = study.get_trials(deepcopy=False)[n_history:]
+    if len(new) != 2 or study.sampler._base_sampler._device.type != "cuda":
+        fail(f"PartialFixed over GP samples on {study.sampler._base_sampler._device}")
+    for t in new:
+        if t.state != ot.TrialState.COMPLETE or t.params["x0"] != 0.5 or not math.isfinite(t.value):
+            fail(f"PartialFixed over GP: trial {t.number} {t.state.name}, x0 {t.params['x0']}")
+        if not all(0.0 <= t.params[f"x{i}"] <= 1.0 for i in range(1, 20)):
+            fail(f"PartialFixed over GP: trial {t.number} is out of the box")
+
+    def grid_objective(trial):
+        a = trial.suggest_int("a", 0, 2)
+        b = trial.suggest_float("b", -1.0, 1.0)
+        return a + b + "pqrs".index(trial.suggest_categorical("c", GRID_POINTS["c"]))
+
+    grid = ot.create_study(sampler=GridSampler(GRID_POINTS, seed=0))
+    grid.optimize(grid_objective, n_trials=100)
+    points = [(t.params["a"], t.params["b"], t.params["c"]) for t in grid.get_trials(deepcopy=False)]
+    want = {(a, b, c) for a in GRID_POINTS["a"] for b in GRID_POINTS["b"] for c in GRID_POINTS["c"]}
+    if len(points) != 36 or set(points) != want:
+        fail(f"Grid: {len(points)} trials over {len(set(points))} points, expected each of 36 once")
+
+    def brute_objective(trial):
+        k = trial.suggest_int("k", 0, 3)
+        return k + {"x": 0.0, "y": 0.5, "z": 1.0}[trial.suggest_categorical("c", ["x", "y", "z"])]
+
+    brute = ot.create_study(sampler=BruteForceSampler(seed=0))
+    brute.optimize(brute_objective, n_trials=100)
+    leaves = [(t.params["k"], t.params["c"]) for t in brute.get_trials(deepcopy=False)]
+    if len(leaves) != 12 or set(leaves) != {(k, c) for k in range(4) for c in "xyz"}:
+        fail(f"BruteForce: {len(leaves)} trials over {len(set(leaves))} leaves, expected each of 12 once")
+
+    plain, _ = tpe_study(branin, GUARDED_TRIALS)
+    guarded = ot.create_study(sampler=GuardedSampler(TPESampler(seed=0)))
+    guarded.optimize(branin, n_trials=GUARDED_TRIALS)
+    if trial_rows(guarded) != trial_rows(plain) or fallback_trials(guarded):
+        fail("GuardedSampler: the fault-free guarded study differs from the unwrapped one")
+    nan = ot.create_study(sampler=GuardedSampler(FaultySampler(TPESampler(seed=0), nan_at={GUARDED_NAN_AT - 1})))
+    nan.optimize(branin, n_trials=GUARDED_TRIALS)
+    rows = nan.get_trials(deepcopy=False)
+    if fallback_trials(nan) != [GUARDED_NAN_AT] or trial_rows(nan)[:GUARDED_NAN_AT] != trial_rows(plain)[:GUARDED_NAN_AT]:
+        fail(f"GuardedSampler: fallbacks at {fallback_trials(nan)}, expected exactly trial {GUARDED_NAN_AT}")
+    reason = rows[GUARDED_NAN_AT].system_attrs.get("sampler_fallback:relative", "")
+    if "non-finite" not in reason or not all(
+            t.state == ot.TrialState.COMPLETE and in_distributions(t) and math.isfinite(t.value) for t in rows):
+        fail(f"GuardedSampler: the degraded trial's attr {reason!r}, or a trial not COMPLETE/finite/in range")
+
+    def build_error(index):
+        return KernelBuildError(f"nvcc failed (injected at suggest #{index})")
+
+    broken = ot.create_study(sampler=GuardedSampler(FaultySampler(TPESampler(seed=0), raise_at={GUARDED_RAISE_AT - 1},
+                                                                  error_factory=build_error)))
+    try:
+        broken.optimize(branin, n_trials=10)
+    except KernelBuildError:
+        pass
+    else:
+        fail("GuardedSampler: a KernelBuildError from the wrapped sampler did not propagate")
+    states = [t.state.name for t in broken.get_trials(deepcopy=False)]
+    if states != ["COMPLETE"] * GUARDED_RAISE_AT + ["FAIL"] or fallback_trials(broken):
+        fail(f"GuardedSampler: after the KernelBuildError states {states}, fallbacks {fallback_trials(broken)}")
+    print(
+        f"wrappers ({gpu}): PartialFixed({{'x0': 0.5}}) over GPSampler on {study.sampler._base_sampler._device}, "
+        f"2 asks at n={n_history} in {pf_s:.2f} s, "
+        f"x0 exactly 0.5, x1-x19 in the box; Grid 3x3x4 stopped at {len(points)} trials, each point once; "
+        f"BruteForce enumerated its {len(leaves)} leaves; GuardedSampler(TPE) {GUARDED_TRIALS} Branin trials "
+        f"identical to the unwrapped run; a NaN proposal degraded exactly trial {GUARDED_NAN_AT} "
+        f"({reason[:60]!r}); a KernelBuildError at trial {GUARDED_RAISE_AT} propagated, no fallback"
+    )
+
+
 def main() -> None:
     try:
         import torch
@@ -1569,19 +1940,29 @@ def main() -> None:
     motpe = phase_motpe(wrappers["nds_rank"], gpu)
     motpe_counts = counts()
     print(f"TPE phases 12-16: {time.perf_counter() - t_tpe:.1f} s, set-up and checks included")
+    t_runtime = time.perf_counter()
+    reset()
+    threads_tpe = phase_threads_tpe(gpu)
+    threads_gp = phase_threads_gp(k1_count)
+    threads_nsga = phase_threads_nsga(wrappers["nds_rank"], nsga_s)
+    phase_wrappers(gpu)
+    runtime = counts()
+    print(f"runtime phases 18-19: {time.perf_counter() - t_runtime:.1f} s, set-up and checks included")
     if any(tpe_counts.values()):
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
-        "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"],
-        "nds_rank": nsga["nds_rank"] + motpe["launches"],
-        "wfg_stack": hv["wfg_stack"],
+        "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"],
+        "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"],
+        "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"],
     }
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
         f"{8 + int(profile_asks)} asks; NSGA-II {nsga}; hypervolume {hv}; scan {scan}: K1 fresh "
         f"{scan_fresh['k1']}, exact {scan_exact['k1']}, sparse {scan_sparse['k1']} over "
         f"{scan_sparse['chunks']} chunks and {int(scan_sparse['gauges']['device.gp.inducing_swaps.total'])} swaps"
-        f"{', profiled chunks included' if profile_asks else ''}; MOTPE K2 {motpe['launches']})"
+        f"{', profiled chunks included' if profile_asks else ''}; MOTPE K2 {motpe['launches']}; runtime phases "
+        f"{runtime}: K1 {threads_gp['k1']} over the threaded sparse asks, K2 {threads_nsga['ranks']} from the "
+        f"NSGA-II workers)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -1592,7 +1973,7 @@ def main() -> None:
         fail(f"nds_rank launched {launches['nds_rank']} times over NSGA-II generations 2 and 3")
     if launches["wfg_stack"] != 2:
         fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
-    paths = (gp, nsga, hv, scan, motpe_counts)
+    paths = (gp, nsga, hv, scan, motpe_counts, runtime)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -1612,7 +1993,10 @@ def main() -> None:
         f"({scan_exact['trials_per_s']:.2f} trials/s), {scan_sparse['s_per_chunk']:.3f} s per sparse chunk "
         f"({scan_sparse['trials_per_s']:.2f} trials/s), TPE highdim_mixed {tpe['univariate']['card_ms']:.3f} "
         f"ms/trial (CPU torch {tpe['univariate']['cpu_ms']:.3f}), MOTPE {motpe['ms']:.3f} ms/trial from 512 "
-        f"trials, total {time.perf_counter() - t_start:.1f} s"
+        f"trials, TPE n_jobs=1/{RUNTIME_JOBS} {threads_tpe[1]['ms']:.3f}/{threads_tpe[RUNTIME_JOBS]['ms']:.3f} "
+        f"ms/trial, warm sparse GP asks sequential {threads_gp['seq_ask_s']:.3f} s / at n_jobs=2 "
+        f"{threads_gp['thr_ask_s']:.3f} s an ask, NSGA-II n_jobs={RUNTIME_JOBS} {threads_nsga['ms']:.3f} ms/trial, "
+        f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,7 +1,10 @@
 """optuna_tpu_torch — the PyTorch/CUDA port of ``optuna_tpu``.
 
 The port runs beside the JAX package, which stays the reference. Four
-paths are ported, on in-memory storage:
+paths are ported, on in-memory storage (with the retrying and caching
+wrappers, heartbeats and retry callbacks) and the study runtime around
+them (``n_jobs`` threads, the progress bar, study management, the Grid,
+BruteForce and PartialFixed samplers, ``GuardedSampler``):
 
 * **TPE**: ``TPESampler``, the default sampler of a single-objective
   study (univariate, multivariate and group, constant liar, constraints,
@@ -25,23 +28,39 @@ of moving to the CPU.
 
 from optuna_tpu_torch import _device  # noqa: F401  (TF32 off before any tensor work)
 from optuna_tpu_torch import distributions, exceptions, logging, pruners, samplers
-from optuna_tpu_torch import search_space, storages, study, trial
+from optuna_tpu_torch import search_space, storages, study, trial, utils
 from optuna_tpu_torch import parallel  # after study and trial: the scan loop builds trials
 from optuna_tpu_torch.exceptions import TrialPruned
-from optuna_tpu_torch.study import Study, StudyDirection, create_study
+from optuna_tpu_torch.study import (
+    Study,
+    StudyDirection,
+    StudySummary,
+    copy_study,
+    create_study,
+    delete_study,
+    get_all_study_names,
+    get_all_study_summaries,
+    load_study,
+)
 from optuna_tpu_torch.trial import FrozenTrial, Trial, TrialState, create_trial
 
 __all__ = [
     "FrozenTrial",
     "Study",
     "StudyDirection",
+    "StudySummary",
     "Trial",
     "TrialPruned",
     "TrialState",
+    "copy_study",
     "create_study",
     "create_trial",
+    "delete_study",
     "distributions",
     "exceptions",
+    "get_all_study_names",
+    "get_all_study_summaries",
+    "load_study",
     "logging",
     "parallel",
     "pruners",
@@ -50,4 +69,5 @@ __all__ = [
     "storages",
     "study",
     "trial",
+    "utils",
 ]

@@ -1,7 +1,8 @@
 """Exception hierarchy.
 
 Parity target: ``optuna/exceptions.py`` in the reference (TrialPruned,
-StorageInternalError, DuplicatedStudyError, UpdateFinishedTrialError).
+StorageInternalError, DuplicatedStudyError, UpdateFinishedTrialError,
+ExperimentalWarning).
 """
 
 from __future__ import annotations
@@ -37,3 +38,7 @@ class UpdateFinishedTrialError(OptunaTPUError, RuntimeError):
 
     Also a ``RuntimeError`` so callers written against the reference's
     documented storage contract (``optuna/exceptions.py:84``) catch it."""
+
+
+class ExperimentalWarning(Warning):
+    """Warning category for experimental APIs."""

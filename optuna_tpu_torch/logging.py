@@ -113,3 +113,29 @@ def disable_propagation() -> None:
 def enable_propagation() -> None:
     _configure_library_root_logger()
     _get_library_root_logger().propagate = True
+
+
+_warn_once_lock = threading.Lock()
+_warned_once_keys: set[tuple[str, str]] = set()
+
+
+def warn_once(logger: logging.Logger, key: str, message: str) -> bool:
+    """Emit ``message`` at WARNING level the first time ``key`` is seen on
+    this logger (per process); later calls are silent no-ops. Returns True
+    when the warning was actually emitted.
+
+    The shared copy of the hand-rolled suppress-repeat-warnings logic the
+    resilience layers grew independently (``GuardedSampler`` warned once per
+    study, the batch executor once per degradation condition): repeated
+    containment events are *recorded* — telemetry counters and trial attrs
+    carry every occurrence — but warned about once, so a study degrading a
+    thousand trials does not bury its log. Keys should carry whatever
+    identity bounds the suppression (study id, executor token, phase).
+    """
+    with _warn_once_lock:
+        dedupe_key = (logger.name, key)
+        if dedupe_key in _warned_once_keys:
+            return False
+        _warned_once_keys.add(dedupe_key)
+    logger.warning(message)
+    return True

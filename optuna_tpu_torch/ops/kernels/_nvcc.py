@@ -3,7 +3,12 @@ interface, and load it with ``ctypes``.
 
 Libraries go to ``_build/`` beside this file (ignored by git), named by a
 hash of the source and flags, so an edited source rebuilds and an unchanged
-one is built once per checkout. A failed build raises with nvcc's output.
+one is built once per checkout. A failed build, or a library that does not
+load or lacks an entry point, raises :class:`KernelBuildError`.
+
+:func:`load` publishes a library only once ``ctypes`` has loaded it and its
+entry points are bound, under one lock, so threads that reach a kernel
+together build and load it once.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -30,6 +36,12 @@ _loaded: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built or loaded: no ``nvcc``, ``nvcc``
+    failed, or the built library does not load or lacks an entry point. A
+    device fault, which ``GuardedSampler`` never contains."""
+
+
 def find_nvcc() -> str:
     for candidate in (
         shutil.which("nvcc"),
@@ -38,7 +50,7 @@ def find_nvcc() -> str:
     ):
         if candidate and os.path.exists(candidate):
             return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernels of optuna_tpu_torch need the CUDA toolkit.")
+    raise KernelBuildError("nvcc not found: the CUDA kernels of optuna_tpu_torch need the CUDA toolkit.")
 
 
 def library_path(source: str) -> Path:
@@ -58,16 +70,24 @@ def build(source: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_LOGS[source] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
+        raise KernelBuildError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``csrc/<source>``, once per process."""
+def load(source: str, bind: Callable[[ctypes.CDLL], object] | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<source>``, once per
+    process, and declare its entry points with ``bind``. A library that
+    ``ctypes`` cannot load (``OSError``), or that lacks an entry point
+    ``bind`` declares (``AttributeError``), raises :class:`KernelBuildError`."""
     with _lock:
         lib = _loaded.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _loaded[source] = lib
+        try:
+            if lib is None:
+                lib = ctypes.CDLL(str(build(source)))
+            if bind is not None:
+                bind(lib)
+        except (OSError, AttributeError) as err:
+            raise KernelBuildError(f"the library of {source} could not be loaded or bound: {err}") from err
+        _loaded[source] = lib
         return lib

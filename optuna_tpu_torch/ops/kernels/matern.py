@@ -13,14 +13,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
 _SOURCE = "matern52_gram.cu"
 _SQRT5 = math.sqrt(5.0)
 
-#: Kernel launches since the last reset; counts only real launches.
+#: Kernel launches since the last reset; counts only real launches. Worker
+#: threads of ``optimize(n_jobs=...)`` launch together, so the count is
+#: raised under :data:`_COUNT_LOCK`.
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def matern52_gram_plain(
@@ -54,7 +58,7 @@ def _lib():
     """The built library of ``csrc/matern52_gram.cu``, bound."""
     from optuna_tpu_torch.ops.kernels import _nvcc
 
-    return bind(_nvcc.load(_SOURCE))
+    return _nvcc.load(_SOURCE, bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -93,7 +97,8 @@ def _launch(x1, x2, w, scale, cat_mask, lib: ctypes.CDLL | None = None) -> torch
     if err != 0:
         raise RuntimeError(f"matern52_gram kernel launch failed: CUDA error {err}.")
     if lib is None:
-        LAUNCHES += 1
+        with _COUNT_LOCK:
+            LAUNCHES += 1
     return out
 
 

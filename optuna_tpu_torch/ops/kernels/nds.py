@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -31,6 +32,9 @@ LAUNCHES = 0
 #: Rankings launched by :func:`rank_fronts` since the last reset; each is
 #: two kernel launches (the packed matrix, then the peel).
 RANK_LAUNCHES = 0
+#: Both counts are raised under this lock: worker threads of
+#: ``optimize(n_jobs=...)`` launch together.
+_COUNT_LOCK = threading.Lock()
 
 
 def dominance_matrix_plain(values: torch.Tensor) -> torch.Tensor:
@@ -71,7 +75,7 @@ def _lib():
     """The built library of ``csrc/dominance.cu``, bound."""
     from optuna_tpu_torch.ops.kernels import _nvcc
 
-    return bind(_nvcc.load(_SOURCE))
+    return _nvcc.load(_SOURCE, bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -106,7 +110,8 @@ def _launch(values: torch.Tensor) -> torch.Tensor:
     err = _lib().dominance_launch(v.data_ptr(), out.data_ptr(), n, m, values.device.index, stream)
     if err != 0:
         raise RuntimeError(f"dominance_matrix kernel launch failed: CUDA error {err}.")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -149,7 +154,8 @@ def _rank_launch(values: torch.Tensor, mask: torch.Tensor, lib: ctypes.CDLL | No
     if err != 0:
         raise RuntimeError(f"rank_fronts kernel launch failed: CUDA error {err}.")
     if counted:
-        RANK_LAUNCHES += 1
+        with _COUNT_LOCK:
+            RANK_LAUNCHES += 1
     return out
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -34,6 +35,9 @@ _SOURCE = "wfg_limit_filter.cu"
 LAUNCHES = 0
 #: Launches of the stack kernel (:func:`wfg_stack`) since the last reset.
 STACK_LAUNCHES = 0
+#: Both launch counts are raised under this lock: worker threads of
+#: ``optimize(n_jobs=...)`` launch together.
+_COUNT_LOCK = threading.Lock()
 
 #: Bodies of :func:`wfg_stack_plain` between two host reads of ``depth``.
 NODES_PER_SYNC = 32
@@ -170,7 +174,10 @@ def _library():
     """The built library, with its C entry points' argument types declared."""
     from optuna_tpu_torch.ops.kernels import _nvcc
 
-    lib = _nvcc.load(_SOURCE)
+    return _nvcc.load(_SOURCE, _bind)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wfg_limit_filter_launch.argtypes = [ptr] * 7 + [i32] * 2 + [ptr]
     lib.wfg_limit_filter_launch.restype = i32
@@ -180,7 +187,6 @@ def _library():
     lib.wfg_stack_launch.restype = i32
     lib.wfg_stack_scratch_bytes.argtypes = [i32, i32]
     lib.wfg_stack_scratch_bytes.restype = ctypes.c_longlong
-    return lib
 
 
 def _check_float32(fn: str, **tensors: torch.Tensor) -> None:
@@ -224,7 +230,8 @@ def _launch(pts, p, eligible, ref) -> tuple[torch.Tensor, torch.Tensor]:
         )
     if err != 0:
         raise RuntimeError(f"limit_and_filter kernel launch failed: CUDA error {err}.")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out_pts, out_msk
 
 
@@ -274,7 +281,8 @@ def _launch_stack(pts0, m0, ref) -> tuple[torch.Tensor, torch.Tensor]:
             )
             if err != 0:
                 raise RuntimeError(f"wfg_stack kernel launch failed: CUDA error {err}.")
-            STACK_LAUNCHES += 1
+            with _COUNT_LOCK:
+                STACK_LAUNCHES += 1
     total = int(nodes.sum())  # the one host read of the call
     STATS["nodes"] += total
     STATS["bodies"] += total

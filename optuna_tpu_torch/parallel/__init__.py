@@ -8,8 +8,9 @@
   tells (O(m^2) above the exact-size threshold), storage synced once per
   chunk.
 
-The batch executor, ``optimize_vectorized``, the ICI journal and the
-sharded pod loop are not ported yet (ROADMAP A7).
+:mod:`executor` holds only the deadline watchdog (``run_with_deadline``)
+so far; the batch executor, ``optimize_vectorized``, the ICI journal and
+the sharded pod loop are not ported yet (ROADMAP A7).
 """
 
 from optuna_tpu_torch.parallel.scan_loop import optimize_scan

@@ -1,7 +1,7 @@
 """Samplers package (reference ``optuna_tpu/samplers/__init__.py``).
 
-GPSampler, NSGAIISampler, TPESampler and MOTPESampler load lazily so that
-importing the package does no numerical set-up.
+Every sampler but the base, Random and LazyRandomState loads lazily, so
+that importing the package does no numerical set-up.
 """
 
 from __future__ import annotations
@@ -11,9 +11,13 @@ from optuna_tpu_torch.samplers._lazy_random_state import LazyRandomState
 from optuna_tpu_torch.samplers._random import RandomSampler
 
 _LAZY = {
+    "BruteForceSampler": "optuna_tpu_torch.samplers._brute_force",
     "GPSampler": "optuna_tpu_torch.samplers._gp.sampler",
+    "GridSampler": "optuna_tpu_torch.samplers._grid",
+    "GuardedSampler": "optuna_tpu_torch.samplers._resilience",
     "MOTPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
     "NSGAIISampler": "optuna_tpu_torch.samplers.nsgaii",
+    "PartialFixedSampler": "optuna_tpu_torch.samplers._partial_fixed",
     "TPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
 }
 

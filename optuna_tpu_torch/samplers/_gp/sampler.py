@@ -172,6 +172,10 @@ class GPSampler(BaseSampler):
     _WARM_FIT = (2, 24)
 
     def _device_space(self, sig: tuple, space) -> "_DeviceSpace":
+        # This cache and ``_kernel_params_cache`` are unlocked on purpose:
+        # asks from ``n_jobs`` threads may both miss and build; each value is
+        # complete before it is stored, so a race costs one extra build (or
+        # keeps the other thread's warm start), never a wrong answer.
         dev = self._device_space_cache.get(sig)
         if dev is None:
             dev = _DeviceSpace(space, self._n_preliminary_samples, self._device)

@@ -306,6 +306,9 @@ class TPESampler(BaseSampler):
         fresh signature every call, so the cache is capped; a miss costs a
         cheap host rebuild and one upload."""
         key = tuple((n, repr(d)) for n, d in search_space.items())
+        # Unlocked on purpose: asks from ``n_jobs`` threads may both miss and
+        # build the same spec; each is complete before it is stored, so a
+        # race costs one extra build, never a wrong spec.
         spec = self._univariate_space_specs.get(key)
         if spec is not None:
             return spec

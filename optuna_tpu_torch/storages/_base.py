@@ -229,4 +229,137 @@ class BaseStorage(abc.ABC):
         return self.__dict__.copy()
 
 
+class _ForwardingStorage(BaseStorage):
+    """Transparent delegating wrapper around another storage.
+
+    Base class for storage *decorators* — :class:`RetryingStorage`,
+    :class:`FaultInjectorStorage` — that need the full 25-method surface plus
+    the heartbeat mixin without re-implementing it. Every primitive call
+    funnels through :meth:`_forward`, the single override point; the derived
+    convenience methods inherited from :class:`BaseStorage` compose the
+    (decorated) primitives, so subclass behavior covers them automatically.
+
+    Heartbeat methods delegate when the backend supports them and degrade to
+    "heartbeat disabled" otherwise, matching the gRPC server's treatment of
+    non-heartbeat backings.
+    """
+
+    def __init__(self, backend: BaseStorage) -> None:
+        self._backend = backend
+
+    def _forward(self, method: str, *args: Any, **kwargs: Any) -> Any:
+        return getattr(self._backend, method)(*args, **kwargs)
+
+    # ------------------------------------------------------------------ study
+
+    def create_new_study(
+        self, directions: Sequence[StudyDirection], study_name: str | None = None
+    ) -> int:
+        return self._forward("create_new_study", directions, study_name)
+
+    def delete_study(self, study_id: int) -> None:
+        self._forward("delete_study", study_id)
+
+    def set_study_user_attr(self, study_id: int, key: str, value: Any) -> None:
+        self._forward("set_study_user_attr", study_id, key, value)
+
+    def set_study_system_attr(self, study_id: int, key: str, value: Any) -> None:
+        self._forward("set_study_system_attr", study_id, key, value)
+
+    def get_study_id_from_name(self, study_name: str) -> int:
+        return self._forward("get_study_id_from_name", study_name)
+
+    def get_study_name_from_id(self, study_id: int) -> str:
+        return self._forward("get_study_name_from_id", study_id)
+
+    def get_study_directions(self, study_id: int) -> list[StudyDirection]:
+        return self._forward("get_study_directions", study_id)
+
+    def get_study_user_attrs(self, study_id: int) -> dict[str, Any]:
+        return self._forward("get_study_user_attrs", study_id)
+
+    def get_study_system_attrs(self, study_id: int) -> dict[str, Any]:
+        return self._forward("get_study_system_attrs", study_id)
+
+    def get_all_studies(self) -> list["FrozenStudy"]:
+        return self._forward("get_all_studies")
+
+    # ------------------------------------------------------------------ trial
+
+    def create_new_trial(self, study_id: int, template_trial: FrozenTrial | None = None) -> int:
+        return self._forward("create_new_trial", study_id, template_trial)
+
+    def create_new_trials(
+        self, study_id: int, n: int, template_trial: FrozenTrial | None = None
+    ) -> list[int]:
+        return self._forward("create_new_trials", study_id, n, template_trial)
+
+    def set_trial_param(
+        self,
+        trial_id: int,
+        param_name: str,
+        param_value_internal: float,
+        distribution: BaseDistribution,
+    ) -> None:
+        self._forward("set_trial_param", trial_id, param_name, param_value_internal, distribution)
+
+    def set_trial_state_values(
+        self, trial_id: int, state: TrialState, values: Sequence[float] | None = None
+    ) -> bool:
+        return self._forward("set_trial_state_values", trial_id, state, values)
+
+    def set_trial_intermediate_value(
+        self, trial_id: int, step: int, intermediate_value: float
+    ) -> None:
+        self._forward("set_trial_intermediate_value", trial_id, step, intermediate_value)
+
+    def set_trial_user_attr(self, trial_id: int, key: str, value: Any) -> None:
+        self._forward("set_trial_user_attr", trial_id, key, value)
+
+    def set_trial_system_attr(self, trial_id: int, key: str, value: Any) -> None:
+        self._forward("set_trial_system_attr", trial_id, key, value)
+
+    def get_trial(self, trial_id: int) -> FrozenTrial:
+        return self._forward("get_trial", trial_id)
+
+    def get_all_trials(
+        self,
+        study_id: int,
+        deepcopy: bool = True,
+        states: Container[TrialState] | None = None,
+    ) -> list[FrozenTrial]:
+        return self._forward("get_all_trials", study_id, deepcopy, states)
+
+    def _read_trials_partial(
+        self, study_id: int, max_known_trial_id: int, extra_ids: "Container[int] | set[int]"
+    ) -> list[FrozenTrial]:
+        return self._forward("_read_trials_partial", study_id, max_known_trial_id, extra_ids)
+
+    # -------------------------------------------------------------- heartbeat
+
+    def record_heartbeat(self, trial_id: int) -> None:
+        if hasattr(self._backend, "record_heartbeat"):
+            self._forward("record_heartbeat", trial_id)
+
+    def _get_stale_trial_ids(self, study_id: int) -> list[int]:
+        if hasattr(self._backend, "_get_stale_trial_ids"):
+            return self._forward("_get_stale_trial_ids", study_id)
+        return []
+
+    def get_heartbeat_interval(self) -> int | None:
+        if hasattr(self._backend, "get_heartbeat_interval"):
+            return self._forward("get_heartbeat_interval")
+        return None
+
+    def get_failed_trial_callback(self) -> Any:
+        if hasattr(self._backend, "get_failed_trial_callback"):
+            return self._forward("get_failed_trial_callback")
+        return None
+
+    # -------------------------------------------------------------- lifecycle
+
+    def remove_session(self) -> None:
+        self._backend.remove_session()
+
+
 from optuna_tpu_torch.study._frozen import FrozenStudy  # noqa: E402  (cycle-breaking tail import)

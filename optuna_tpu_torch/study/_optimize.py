@@ -1,22 +1,32 @@
 """Trial-execution engine behind ``Study.optimize`` (PyTorch port of
 ``optuna_tpu/study/_optimize.py``).
 
-Sequential only in this slice (``n_jobs=1``): one :class:`_RunBudget` hands
-out per-trial claims, and each trial runs the ask → objective → tell
-pipeline as an :class:`_Outcome` value. Heartbeats, the progress bar and the
-observability/control hooks of the reference come with later slices.
+One shared :class:`_RunBudget` hands out per-trial claims to however many
+workers exist (the sequential path is one worker; ``n_jobs`` threads share
+one budget), and each trial runs the ask → objective (under a heartbeat)
+→ tell pipeline as an :class:`_Outcome` value. The reference's telemetry
+spans and its health, autopilot, flight-recorder and tracing hooks are not
+ported (ROADMAP A11).
+
+With ``n_jobs > 1`` the worker threads launch the port's kernels and torch
+ops on one card, on the default stream: correct, and serial on the card.
+Threads overlap only where an ask releases the GIL (host waits on the card,
+NumPy), so the gain depends on the sampler.
 """
 
 from __future__ import annotations
 
 import gc
+import os
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from optuna_tpu_torch import exceptions, logging as logging_module
+from optuna_tpu_torch.progress_bar import _ProgressBar
 from optuna_tpu_torch.study._tell import _tell_with_warning
 from optuna_tpu_torch.trial._frozen import FrozenTrial
 from optuna_tpu_torch.trial._state import TrialState
@@ -118,9 +128,19 @@ def _execute_one(
     func: "ObjectiveFuncType",
     catch: tuple[type[Exception], ...],
 ) -> FrozenTrial:
-    """ask → objective → tell, as one pipeline."""
+    """ask → objective (under a heartbeat) → tell, as one pipeline."""
+    from optuna_tpu_torch.storages._heartbeat import (
+        fail_stale_trials,
+        get_heartbeat_thread,
+        is_heartbeat_enabled,
+    )
+
+    if is_heartbeat_enabled(study._storage):
+        fail_stale_trials(study)
+
     trial = study.ask()
-    outcome = _call_objective(func, trial)
+    with get_heartbeat_thread(trial._trial_id, study._storage):
+        outcome = _call_objective(func, trial)
 
     # Misbehaving objectives (wrong arity, NaNs, non-floats) downgrade to
     # warnings via _tell_with_warning rather than aborting the whole loop.
@@ -150,12 +170,17 @@ def _worker(
     catch: tuple[type[Exception], ...],
     callbacks: Sequence[Callable[["Study", FrozenTrial], None]] | None,
     gc_after_trial: bool,
+    progress_bar: _ProgressBar | None,
+    reseed: bool,
 ) -> None:
     """Run trials until the shared budget refuses another claim."""
     study._thread_local.in_optimize_loop = True
+    if reseed:
+        study.sampler.reseed_rng()
     while budget.claim():
-        # Any escape — objective error not in `catch`, a raising callback —
-        # halts the budget before it propagates.
+        # Any escape — objective error not in `catch`, a raising callback,
+        # even the progress bar — halts the budget so peer workers stop
+        # claiming fresh trials instead of draining the whole quota.
         try:
             try:
                 frozen = _execute_one(study, func, catch)
@@ -166,6 +191,8 @@ def _worker(
                     gc.collect()
             for callback in callbacks or ():
                 callback(study, frozen)
+            if progress_bar is not None:
+                progress_bar.update(budget.elapsed(), study)
         except BaseException:  # halt-then-reraise: nothing is swallowed
             budget.halt()
             raise
@@ -188,16 +215,43 @@ def _optimize(
         )
     if study._thread_local.in_optimize_loop:
         raise RuntimeError("Nested invocation of `Study.optimize` method isn't allowed.")
-    if n_jobs != 1:
-        raise NotImplementedError(
-            "optuna_tpu_torch runs trials sequentially in this slice: n_jobs must be 1."
-        )
-    if show_progress_bar:
-        raise NotImplementedError("optuna_tpu_torch has no progress bar yet.")
+    if show_progress_bar and n_trials is None and timeout is not None and n_jobs != 1:
+        _logger.warning("The timeout-based progress bar is not supported with n_jobs != 1.")
+        show_progress_bar = False
+    if n_jobs == -1:
+        n_jobs = os.cpu_count() or 1
 
+    progress_bar = _ProgressBar(show_progress_bar, n_trials, timeout)
     study._stop_flag = False
     budget = _RunBudget(study, n_trials, timeout)
+
     try:
-        _worker(study, func, budget, catch, callbacks, gc_after_trial)
+        if n_jobs == 1:
+            _worker(
+                study, func, budget, catch, callbacks, gc_after_trial, progress_bar,
+                reseed=False,
+            )
+        else:
+            # Every worker reseeds: thread-parallel trials would otherwise
+            # draw identical streams from a shared per-seed RNG.
+            try:
+                with ThreadPoolExecutor(max_workers=n_jobs) as pool:
+                    handles = [
+                        pool.submit(
+                            _worker,
+                            study, func, budget, catch, callbacks, gc_after_trial,
+                            progress_bar, True,
+                        )
+                        for _ in range(n_jobs)
+                    ]
+                    for handle in handles:
+                        handle.result()  # propagate worker exceptions
+            finally:
+                # A main-thread escape (e.g. KeyboardInterrupt inside
+                # result()) must stop the claim stream, or the executor's
+                # __exit__ join would wait for workers to drain an unbounded
+                # quota.
+                budget.halt()
     finally:
         study._thread_local.in_optimize_loop = False
+        progress_bar.close()

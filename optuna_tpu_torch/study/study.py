@@ -1,7 +1,10 @@
 """User-facing optimization session (PyTorch port of ``optuna_tpu/study/study.py``).
 
-This slice carries ``create_study``, ``Study.optimize/ask/tell/add_trial(s)``,
-``Study.optimize_scan`` and the ``best_*`` accessors; the sharded loop and
+This carries ``create_study``, ``load_study``, ``delete_study``,
+``copy_study``, ``get_all_study_names``, ``get_all_study_summaries``,
+``Study.optimize`` (``n_jobs`` threads, the progress bar),
+``ask/tell/add_trial(s)``, ``Study.optimize_scan``, ``trials_dataframe``,
+``sampler_fallback=`` and the ``best_*`` accessors; the sharded loop and
 ``ask_batch`` are not ported yet.
 
 Parity target: ``optuna/study/study.py`` (``Study:67``, ``create_study:1203``,
@@ -20,11 +23,14 @@ from optuna_tpu_torch import exceptions, logging as logging_module
 from optuna_tpu_torch.distributions import BaseDistribution
 from optuna_tpu_torch.study._multi_objective import _get_pareto_front_trials
 from optuna_tpu_torch.study._study_direction import StudyDirection
+from optuna_tpu_torch.study._study_summary import StudySummary
 from optuna_tpu_torch.trial._frozen import FrozenTrial, create_trial
 from optuna_tpu_torch.trial._state import TrialState
 from optuna_tpu_torch.trial._trial import Trial
 
 if TYPE_CHECKING:
+    import pandas as pd
+
     from optuna_tpu_torch.pruners._base import BasePruner
     from optuna_tpu_torch.samplers._base import BaseSampler
     from optuna_tpu_torch.storages._base import BaseStorage
@@ -50,6 +56,8 @@ class Study:
         storage: "str | BaseStorage",
         sampler: "BaseSampler | None" = None,
         pruner: "BasePruner | None" = None,
+        *,
+        sampler_fallback: str | None = None,
     ) -> None:
         from optuna_tpu_torch.pruners import MedianPruner
         from optuna_tpu_torch.storages import get_storage
@@ -62,6 +70,15 @@ class Study:
         self._directions = storage.get_study_directions(study_id)
 
         self.sampler = sampler or _default_sampler(self._directions)
+        if sampler_fallback is not None:
+            # Every suggestion this study asks for runs under GuardedSampler
+            # containment: a sampler failure degrades per the policy instead
+            # of aborting (a device fault still propagates; see
+            # samplers/_resilience.py).
+            from optuna_tpu_torch.samplers._resilience import GuardedSampler
+
+            if not isinstance(self.sampler, GuardedSampler):
+                self.sampler = GuardedSampler(self.sampler, fallback=sampler_fallback)
         self.pruner = pruner or MedianPruner()
 
         self._thread_local = _ThreadLocalStudyAttribute()
@@ -193,10 +210,9 @@ class Study:
         gc_after_trial: bool = False,
         show_progress_bar: bool = False,
     ) -> None:
-        """Run the ask -> objective -> tell loop (reference ``study.py:413``).
-
-        Sequential only in this slice: ``n_jobs`` must be 1, and
-        ``show_progress_bar`` is not supported."""
+        """Run the ask -> objective -> tell loop (reference ``study.py:413``):
+        ``n_jobs`` threads share one trial budget (``-1``: one per CPU), and
+        ``show_progress_bar`` needs the optional ``tqdm``."""
         from optuna_tpu_torch.study._optimize import _optimize
 
         _optimize(
@@ -226,6 +242,9 @@ class Study:
 
     def ask(self, fixed_distributions: dict[str, BaseDistribution] | None = None) -> Trial:
         """Create a new (or claim a WAITING) trial (reference ``study.py:527``)."""
+        if not self._thread_local.in_optimize_loop and is_heartbeat_enabled(self._storage):
+            warnings.warn("Heartbeat of storage is supposed to be used with Study.optimize.")
+
         fixed_distributions = fixed_distributions or {}
         # Fresh per-ask trial cache: new trial => new history snapshot.
         self._thread_local.cached_all_trials = None
@@ -292,6 +311,28 @@ class Study:
         )
 
     # ------------------------------------------------------------------- misc
+
+    def trials_dataframe(
+        self,
+        attrs: tuple[str, ...] = (
+            "number",
+            "value",
+            "datetime_start",
+            "datetime_complete",
+            "duration",
+            "params",
+            "user_attrs",
+            "system_attrs",
+            "state",
+        ),
+        multi_index: bool = False,
+    ) -> "pd.DataFrame":
+        """The trials as a ``pandas.DataFrame`` (``pandas`` is optional and
+        imported here; without it this raises ``ImportError``, as the
+        reference does)."""
+        from optuna_tpu_torch.study._dataframe import _trials_dataframe
+
+        return _trials_dataframe(self, attrs, multi_index)
 
     def stop(self) -> None:
         """Request loop exit after the current trial (reference ``study.py:1033``)."""
@@ -416,6 +457,7 @@ def create_study(
     direction: str | StudyDirection | None = None,
     load_if_exists: bool = False,
     directions: Sequence[str | StudyDirection] | None = None,
+    sampler_fallback: str | None = None,
 ) -> Study:
     """Create (or load, with ``load_if_exists``) a study (reference ``study.py:1203``)."""
     from optuna_tpu_torch.storages import get_storage
@@ -462,4 +504,112 @@ def create_study(
         storage=storage_obj,
         sampler=sampler,
         pruner=pruner,
+        sampler_fallback=sampler_fallback,
     )
+
+
+def load_study(
+    *,
+    study_name: str | None = None,
+    storage: "str | BaseStorage",
+    sampler: "BaseSampler | None" = None,
+    pruner: "BasePruner | None" = None,
+    sampler_fallback: str | None = None,
+) -> Study:
+    """Load an existing study (reference ``study.py:1358``)."""
+    from optuna_tpu_torch.storages import get_storage
+
+    storage_obj = get_storage(storage)
+    if study_name is None:
+        studies = storage_obj.get_all_studies()
+        if len(studies) != 1:
+            raise ValueError(
+                f"Could not determine the study name since the storage "
+                f"{storage} does not contain exactly 1 study. Specify `study_name`."
+            )
+        study_name = studies[0].study_name
+    return Study(
+        study_name=study_name,
+        storage=storage_obj,
+        sampler=sampler,
+        pruner=pruner,
+        sampler_fallback=sampler_fallback,
+    )
+
+
+def delete_study(*, study_name: str, storage: "str | BaseStorage") -> None:
+    from optuna_tpu_torch.storages import get_storage
+
+    storage_obj = get_storage(storage)
+    study_id = storage_obj.get_study_id_from_name(study_name)
+    storage_obj.delete_study(study_id)
+
+
+def copy_study(
+    *,
+    from_study_name: str,
+    from_storage: "str | BaseStorage",
+    to_storage: "str | BaseStorage",
+    to_study_name: str | None = None,
+) -> None:
+    """Copy a study across storages (reference ``study.py:1510``)."""
+    from_study = load_study(study_name=from_study_name, storage=from_storage)
+    to_study = create_study(
+        study_name=to_study_name or from_study_name,
+        storage=to_storage,
+        directions=from_study.directions,
+        load_if_exists=False,
+    )
+    for key, value in from_study.system_attrs.items():
+        to_study.set_system_attr(key, value)
+    for key, value in from_study.user_attrs.items():
+        to_study.set_user_attr(key, value)
+    to_study.add_trials(from_study.get_trials())
+
+
+def get_all_study_names(storage: "str | BaseStorage") -> list[str]:
+    from optuna_tpu_torch.storages import get_storage
+
+    return [s.study_name for s in get_storage(storage).get_all_studies()]
+
+
+def get_all_study_summaries(
+    storage: "str | BaseStorage", include_best_trial: bool = True
+) -> list[StudySummary]:
+    """Summaries of every study in the storage (reference ``study.py:1611``)."""
+    from optuna_tpu_torch.storages import get_storage
+
+    storage_obj = get_storage(storage)
+    summaries = []
+    for frozen_study in storage_obj.get_all_studies():
+        study_id = frozen_study._study_id
+        trials = storage_obj.get_all_trials(study_id, deepcopy=False)
+        best_trial: FrozenTrial | None = None
+        if include_best_trial and len(frozen_study.directions) == 1:
+            try:
+                best_trial = storage_obj.get_best_trial(study_id)
+            except ValueError:
+                pass
+        datetime_start = min(
+            (t.datetime_start for t in trials if t.datetime_start is not None), default=None
+        )
+        summaries.append(
+            StudySummary(
+                study_name=frozen_study.study_name,
+                direction=None,
+                directions=frozen_study.directions,
+                best_trial=best_trial,
+                user_attrs=frozen_study.user_attrs,
+                system_attrs=frozen_study.system_attrs,
+                n_trials=len(trials),
+                datetime_start=datetime_start,
+                study_id=study_id,
+            )
+        )
+    return summaries
+
+
+# Imports placed at the tail to break the storages<->study cycle.
+import warnings  # noqa: E402
+
+from optuna_tpu_torch.storages._heartbeat import is_heartbeat_enabled  # noqa: E402

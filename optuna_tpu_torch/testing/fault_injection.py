@@ -1,0 +1,390 @@
+"""Fault-injection kit (port of the storage and sampler parts of
+``optuna_tpu/testing/fault_injection.py``).
+
+* :class:`FaultPlan` / :class:`FaultInjectorStorage` — a transparent
+  :class:`BaseStorage` proxy that injects transient exceptions, latency
+  spikes, and hard "worker died mid-call" kills, driven by per-method
+  probability and/or an explicit call-index schedule. Faults strike *before*
+  the backing call executes, so a retried call is semantically safe — which
+  is exactly the contract :class:`~optuna_tpu_torch.storages._retry.RetryingStorage`
+  needs to replay them.
+* Sampler chaos (:mod:`optuna_tpu_torch.samplers._resilience` is the layer
+  under test): :class:`PathologicalHistoryPlan` seeds a study with the
+  degenerate histories that NaN-poison unguarded samplers (all-identical
+  params, constant values, ``±inf``/1e308 values, duplicated retry clones,
+  single-trial history — :data:`PATHOLOGICAL_HISTORY_PLANS` is the matrix),
+  and :class:`FaultySampler` raises / hangs / proposes NaN at the n-th
+  relative suggestion.
+
+The journal, device-stat, pod, health, hub-fleet, lease and checkpoint
+chaos of the reference wait for ROADMAP A8, A9 and A11.
+
+Typical chaos test::
+
+    plan = FaultPlan(transient_rate=0.1, seed=7)
+    storage = RetryingStorage(
+        FaultInjectorStorage(InMemoryStorage(), plan),
+        RetryPolicy(max_attempts=10, sleep=lambda _: None),
+        retry_non_idempotent=True,  # faults strike before the backend commits
+    )
+    study = optuna_tpu_torch.create_study(storage=storage)
+    study.optimize(objective, n_trials=50)   # must match the fault-free run
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Collection, Mapping, Sequence
+
+import numpy as np
+
+from optuna_tpu_torch.logging import get_logger
+from optuna_tpu_torch.storages._base import BaseStorage, _ForwardingStorage
+from optuna_tpu_torch.storages._retry import TransientStorageError
+
+_logger = get_logger(__name__)
+
+
+class SimulatedWorkerDeath(BaseException):
+    """Raised by a scheduled kill: the 'process got SIGKILL'd mid-call' stand-in.
+
+    Deliberately a ``BaseException`` (like ``SystemExit``): the optimize
+    loop's objective-error handling catches ``Exception`` and would convert a
+    mere ``Exception`` into a clean FAIL tell — but a dead worker never gets
+    to tell, so the kill must punch through every handler and leave the trial
+    RUNNING for heartbeat failover to find.
+    """
+
+
+@dataclass
+class FaultPlan:
+    """Declarative description of what to inject, and when.
+
+    ``transient_rate``/``latency_rate`` are per-call probabilities (seeded —
+    a plan replays identically); ``schedule`` and ``kill_schedule`` map a
+    method name to the 0-based call indices (counted per method) that MUST
+    fault, for deterministic scenarios. ``methods`` limits probabilistic
+    faults to a subset (scheduled faults always apply); ``max_faults`` caps
+    the total injected so a finite retry budget always wins eventually.
+    """
+
+    transient_rate: float = 0.0
+    latency_rate: float = 0.0
+    latency_s: float = 0.01
+    methods: frozenset[str] | None = None
+    schedule: Mapping[str, Sequence[int]] = field(default_factory=dict)
+    kill_schedule: Mapping[str, Sequence[int]] = field(default_factory=dict)
+    max_faults: int | None = None
+    seed: int = 0
+    exception_factory: Callable[[str], Exception] = field(
+        default=lambda method: TransientStorageError(
+            f"injected transient fault in {method}"
+        )
+    )
+
+
+# Chaos matrix for the replay-unsafe storage writes: every method whose
+# blind replay can double-apply maps to the failure scenario the chaos suite
+# must exercise against it. Deliberately a hand-written literal (not an
+# import of ``storages._retry.REPLAY_UNSAFE_METHODS``): the matrix is the
+# *test plan* for that set, and a new replay-unsafe write must show up here
+# with a scenario (``tests/test_torch_storages.py`` checks the two agree).
+REPLAY_UNSAFE_CHAOS_MATRIX: dict[str, str] = {
+    "create_new_study": "inject transient before commit; a retry must not mint a twin study",
+    "delete_study": "inject transient before commit; a retry must not raise KeyError",
+    "create_new_trial": "inject transient before commit; a retry must not mint a twin trial",
+    "create_new_trials": "inject transient before commit; a retry must not duplicate the batch",
+    "set_trial_param": "inject transient before commit; a retry must not collide with the claim",
+    "set_trial_state_values": "kill mid-claim; heartbeat failover must reap the RUNNING trial",
+}
+
+
+def replay_unsafe_chaos_plan(
+    *, indices: Sequence[int] = (0,), seed: int = 0, max_faults: int | None = None
+) -> FaultPlan:
+    """A :class:`FaultPlan` that deterministically faults every replay-unsafe
+    write at the given per-method call ``indices`` — the executable form of
+    :data:`REPLAY_UNSAFE_CHAOS_MATRIX`, used by the storage-contract chaos
+    suite so new registry entries are exercised without editing the test."""
+    return FaultPlan(
+        schedule={method: tuple(indices) for method in REPLAY_UNSAFE_CHAOS_MATRIX},
+        seed=seed,
+        max_faults=max_faults,
+    )
+
+
+class FaultInjectorStorage(_ForwardingStorage):
+    """Wrap any storage and inject faults per a :class:`FaultPlan`.
+
+    Thread-safe; per-method call counts and the injected-fault total are
+    exposed as ``calls`` / ``faults_injected`` for assertions. All faults are
+    raised *before* delegating, so the backing storage never observes a
+    half-applied call and retries cannot double-apply.
+    """
+
+    def __init__(self, backend: BaseStorage, plan: FaultPlan | None = None) -> None:
+        super().__init__(backend)
+        self.plan = plan if plan is not None else FaultPlan()
+        self.calls: dict[str, int] = {}
+        self.faults_injected = 0
+        self.kills_injected = 0
+        self._rng = random.Random(self.plan.seed)
+        self._mutex = threading.Lock()
+
+    def _forward(self, method: str, *args: Any, **kwargs: Any) -> Any:
+        delay = self._maybe_fault(method)
+        if delay is not None:
+            time.sleep(delay)
+        return super()._forward(method, *args, **kwargs)
+
+    def _maybe_fault(self, method: str) -> float | None:
+        """Raise per the plan, or return a latency to sleep (outside the lock)."""
+        plan = self.plan
+        with self._mutex:
+            index = self.calls.get(method, 0)
+            self.calls[method] = index + 1
+            if index in tuple(plan.kill_schedule.get(method, ())):
+                self.kills_injected += 1
+                raise SimulatedWorkerDeath(
+                    f"scheduled worker death at {method} call #{index}"
+                )
+            if index in tuple(plan.schedule.get(method, ())):
+                self.faults_injected += 1
+                raise plan.exception_factory(method)
+            if plan.methods is not None and method not in plan.methods:
+                return None
+            budget_open = plan.max_faults is None or self.faults_injected < plan.max_faults
+            if (
+                budget_open
+                and plan.transient_rate > 0.0
+                and self._rng.random() < plan.transient_rate
+            ):
+                self.faults_injected += 1
+                raise plan.exception_factory(method)
+            if plan.latency_rate > 0.0 and self._rng.random() < plan.latency_rate:
+                return plan.latency_s
+        return None
+
+
+def _random_params(
+    rng: "np.random.RandomState", search_space: Mapping[str, Any]
+) -> dict[str, Any]:
+    """Uniform params over a search space (host-side, for history seeding)."""
+    from optuna_tpu_torch.distributions import CategoricalDistribution
+
+    params: dict[str, Any] = {}
+    for name, dist in search_space.items():
+        if isinstance(dist, CategoricalDistribution):
+            params[name] = dist.choices[rng.randint(len(dist.choices))]
+        else:
+            value = rng.uniform(dist.low, dist.high)
+            params[name] = dist.to_external_repr(dist.to_internal_repr(value))
+    return params
+
+
+def _fixed_params(search_space: Mapping[str, Any]) -> dict[str, Any]:
+    """One deterministic point (midpoint / first choice) of a search space."""
+    from optuna_tpu_torch.distributions import CategoricalDistribution
+
+    params: dict[str, Any] = {}
+    for name, dist in search_space.items():
+        if isinstance(dist, CategoricalDistribution):
+            params[name] = dist.choices[0]
+        else:
+            value = 0.5 * (dist.low + dist.high)
+            params[name] = dist.to_external_repr(dist.to_internal_repr(value))
+    return params
+
+
+@dataclass(frozen=True)
+class PathologicalHistoryPlan:
+    """One degenerate-history scenario the sampler resilience rings must
+    absorb: :meth:`populate` seeds a study with ``n_trials`` COMPLETE trials
+    whose params/values follow the pathology. Every plan in
+    :data:`PATHOLOGICAL_HISTORY_PLANS` must leave every sampler able to
+    finish a fresh trial budget with finite params and zero aborts
+    (``tests/test_torch_runtime.py``).
+
+    ``params_fn(index, rng, search_space)`` -> external-repr params;
+    ``value_fn(index)`` -> the scalar objective value (replicated across
+    objectives for multi-objective studies); ``clone_attrs`` additionally
+    tags odd-indexed trials as retry clones of their predecessor
+    (``failed_trial``/``retry_history``/``fixed_params``), the lineage shape
+    ``RetryFailedTrialCallback`` produces.
+    """
+
+    name: str
+    description: str
+    n_trials: int
+    params_fn: Callable[[int, "np.random.RandomState", Mapping[str, Any]], dict]
+    value_fn: Callable[[int], float]
+    clone_attrs: bool = False
+
+    def populate(self, study: Any, search_space: Mapping[str, Any], *, seed: int = 0) -> None:
+        from optuna_tpu_torch.trial._frozen import create_trial
+        from optuna_tpu_torch.trial._state import TrialState
+
+        rng = np.random.RandomState(seed)
+        n_objectives = len(study.directions)
+        for i in range(self.n_trials):
+            params = self.params_fn(i, rng, search_space)
+            system_attrs: dict[str, Any] = {}
+            if self.clone_attrs and i % 2 == 1:
+                system_attrs = {
+                    "failed_trial": i - 1,
+                    "retry_history": [i - 1],
+                    "fixed_params": params,
+                }
+            study.add_trial(
+                create_trial(
+                    state=TrialState.COMPLETE,
+                    params=params,
+                    distributions=dict(search_space),
+                    values=[self.value_fn(i)] * n_objectives,
+                    system_attrs=system_attrs or None,
+                )
+            )
+
+
+#: The degenerate histories every sampler must survive (a row per failure
+#: matrix entry in ARCHITECTURE.md "Sampler resilience"). Duplicates come in
+#: two flavors: every row identical (a Gram matrix of rank one) and
+#: pairwise-duplicated retry clones carrying real retry lineage attrs.
+PATHOLOGICAL_HISTORY_PLANS: tuple[PathologicalHistoryPlan, ...] = (
+    PathologicalHistoryPlan(
+        name="identical_params",
+        description="every trial at the same point: the Gram matrix is rank one",
+        n_trials=8,
+        params_fn=lambda i, rng, space: _fixed_params(space),
+        value_fn=lambda i: 0.1 * i,
+    ),
+    PathologicalHistoryPlan(
+        name="constant_values",
+        description="objective constant: zero-variance standardization/bandwidths",
+        n_trials=8,
+        params_fn=lambda i, rng, space: _random_params(rng, space),
+        value_fn=lambda i: 0.0,
+    ),
+    PathologicalHistoryPlan(
+        name="inf_values",
+        description="±inf objectives: one inf poisons an unclipped mean",
+        n_trials=8,
+        params_fn=lambda i, rng, space: _random_params(rng, space),
+        value_fn=lambda i: (float("inf"), float("-inf"), 1.0)[i % 3],
+    ),
+    PathologicalHistoryPlan(
+        name="huge_values",
+        description="±1e308 objectives: finite in f64, overflow in f32",
+        n_trials=8,
+        params_fn=lambda i, rng, space: _random_params(rng, space),
+        value_fn=lambda i: (1e308, -1e308, 2.0)[i % 3],
+    ),
+    PathologicalHistoryPlan(
+        name="retry_clones",
+        description="B duplicated retry clones: pairwise-identical rows with lineage attrs",
+        n_trials=8,
+        params_fn=lambda i, rng, space: (
+            _random_params(np.random.RandomState(1000 + i // 2), space)
+        ),
+        value_fn=lambda i: 0.05 * (i // 2),
+        clone_attrs=True,
+    ),
+    PathologicalHistoryPlan(
+        name="single_trial",
+        description="one-observation history: degenerate splits and variances",
+        n_trials=1,
+        params_fn=lambda i, rng, space: _random_params(rng, space),
+        value_fn=lambda i: 1.0,
+    ),
+)
+
+
+class FaultySampler:
+    """A sampler whose *relative* suggestions misbehave on schedule.
+
+    Wraps any :class:`~optuna_tpu_torch.samplers._base.BaseSampler`; all knobs are
+    keyed by the 0-based ``sample_relative`` call index (``suggests`` counts
+    them): ``raise_at`` raises ``error_factory(index)``, ``hang_at`` sleeps
+    ``hang_s`` seconds first (tripping a ``fit_deadline_s`` watchdog), and
+    ``nan_at`` returns a NaN proposal for every non-categorical dimension —
+    exactly what an unguarded ill-conditioned GP emits. ``force_relative``
+    claims the intersection search space even when the wrapped sampler would
+    not, so the faults actually fire over plain inner samplers.
+    """
+
+    def __init__(
+        self,
+        inner: Any,
+        *,
+        raise_at: Collection[int] = (),
+        hang_at: Collection[int] = (),
+        nan_at: Collection[int] = (),
+        hang_s: float = 30.0,
+        force_relative: bool = False,
+        error_factory: Callable[[int], Exception] = lambda index: RuntimeError(
+            f"injected sampler crash at suggest #{index}"
+        ),
+    ) -> None:
+        self._inner = inner
+        self.raise_at = frozenset(raise_at)
+        self.hang_at = frozenset(hang_at)
+        self.nan_at = frozenset(nan_at)
+        self.hang_s = hang_s
+        self.error_factory = error_factory
+        self.suggests = 0
+        self._force_relative = force_relative
+        if force_relative:
+            from optuna_tpu_torch.search_space import IntersectionSearchSpace
+
+            self._intersection = IntersectionSearchSpace()
+
+    def reseed_rng(self) -> None:
+        self._inner.reseed_rng()
+
+    def infer_relative_search_space(self, study: Any, trial: Any) -> dict:
+        if self._force_relative:
+            return {
+                name: dist
+                for name, dist in self._intersection.calculate(study).items()
+                if not dist.single()
+            }
+        return self._inner.infer_relative_search_space(study, trial)
+
+    def sample_relative(self, study: Any, trial: Any, search_space: dict) -> dict:
+        from optuna_tpu_torch.distributions import CategoricalDistribution
+
+        index = self.suggests
+        self.suggests += 1
+        if index in self.hang_at:
+            time.sleep(self.hang_s)
+        if index in self.raise_at:
+            raise self.error_factory(index)
+        if index in self.nan_at:
+            return {
+                name: (
+                    dist.choices[0]
+                    if isinstance(dist, CategoricalDistribution)
+                    else float("nan")
+                )
+                for name, dist in search_space.items()
+            }
+        if self._force_relative:
+            # The wrapped sampler never claimed this space; healthy calls
+            # decline the relative proposal so dims resolve independently.
+            return {}
+        return self._inner.sample_relative(study, trial, search_space)
+
+    def sample_independent(self, study: Any, trial: Any, name: str, dist: Any) -> Any:
+        return self._inner.sample_independent(study, trial, name, dist)
+
+    def before_trial(self, study: Any, trial: Any) -> None:
+        self._inner.before_trial(study, trial)
+
+    def after_trial(self, study: Any, trial: Any, state: Any, values: Any) -> None:
+        self._inner.after_trial(study, trial, state, values)
+
+    def __str__(self) -> str:
+        return f"FaultySampler({self._inner})"

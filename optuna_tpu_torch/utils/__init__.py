@@ -1,0 +1,26 @@
+"""Cross-cutting infra (port of ``optuna_tpu/utils``; reference
+``optuna/_imports.py``, ``_experimental.py``, ``_deprecated.py``,
+``_convert_positional_args.py``).
+
+The API-lifecycle decorators and the deferred imports. The reference's
+``_compile_cache`` (the persistent XLA cache) has no counterpart yet
+(ROADMAP A11)."""
+
+from optuna_tpu_torch.utils._compat import (
+    convert_positional_args,
+    deprecated_class,
+    deprecated_func,
+    experimental_class,
+    experimental_func,
+)
+from optuna_tpu_torch.utils._imports import _LazyImport, try_import
+
+__all__ = [
+    "_LazyImport",
+    "convert_positional_args",
+    "deprecated_class",
+    "deprecated_func",
+    "experimental_class",
+    "experimental_func",
+    "try_import",
+]

@@ -39,7 +39,7 @@ def main() -> None:
     others = []
     if "--compare" in sys.argv:
         for path in sys.argv[sys.argv.index("--compare") + 1:]:
-            others.append((os.path.basename(path), matern.bind(_nvcc.load(os.path.abspath(path)))))
+            others.append((os.path.basename(path), _nvcc.load(os.path.abspath(path), matern.bind)))
     for n1, n2, d in SHAPES:
         args = chip_smoke.matern_inputs(n1, n2, d, 0, seed=n1 + n2 + d, device=device)
         tree = lambda: matern.matern52_gram(*args)  # noqa: E731

@@ -137,7 +137,7 @@ def compare(path: str, device) -> None:
 
     from optuna_tpu_torch.ops.kernels import _nvcc, nds
 
-    other = nds.bind(_nvcc.load(os.path.abspath(path)))
+    other = _nvcc.load(os.path.abspath(path), nds.bind)
     cases = [(f"random N={n}", padded_ordinals(np.random.RandomState(n).uniform(0, 1, size=(n, 2)), device))
              for n in SIZES]
     cases += [(f"chain N={n} {order}", chain(n, order, device)) for n in SIZES[:-1] for order in ("row", "shuffled")]

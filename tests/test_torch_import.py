@@ -161,3 +161,83 @@ def test_multi_objective_device_policy():
             non_domination_rank_np(np.zeros((4, 2)))
         with pytest.raises(RuntimeError, match="no GPU"):
             hypervolume_wfg_nd(np.zeros((4, 5)), np.ones(5))
+
+
+RUNTIME_MODULES = [
+    "optuna_tpu_torch._callbacks",
+    "optuna_tpu_torch.parallel.executor",
+    "optuna_tpu_torch.progress_bar",
+    "optuna_tpu_torch.samplers._brute_force",
+    "optuna_tpu_torch.samplers._grid",
+    "optuna_tpu_torch.samplers._partial_fixed",
+    "optuna_tpu_torch.samplers._resilience",
+    "optuna_tpu_torch.storages._cached_storage",
+    "optuna_tpu_torch.storages._callbacks",
+    "optuna_tpu_torch.storages._heartbeat",
+    "optuna_tpu_torch.storages._retry",
+    "optuna_tpu_torch.study._dataframe",
+    "optuna_tpu_torch.study._study_summary",
+    "optuna_tpu_torch.testing",
+    "optuna_tpu_torch.testing.fault_injection",
+    "optuna_tpu_torch.testing.pytest_samplers",
+    "optuna_tpu_torch.testing.pytest_storages",
+    "optuna_tpu_torch.utils",
+    "optuna_tpu_torch.utils._compat",
+    "optuna_tpu_torch.utils._imports",
+]
+
+
+def test_the_runtime_modules_import_with_jax_and_the_reference_blocked():
+    """A finder that refuses ``jax``, ``jaxlib`` and ``optuna_tpu`` sits
+    first on ``sys.meta_path``: every runtime module still imports, and
+    pandas stays unimported (it is optional and imported at use; tqdm is
+    too, but torch itself may import it)."""
+    assert set(RUNTIME_MODULES) <= set(_all_modules())
+    code = (
+        "import importlib, importlib.abc, json, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {RUNTIME_MODULES!r}: importlib.import_module(m)\n"
+        "import optuna_tpu_torch as ot\n"
+        "names = ['GridSampler', 'BruteForceSampler', 'PartialFixedSampler', 'GuardedSampler']\n"
+        "assert all(getattr(ot.samplers, n) for n in names)\n"
+        "assert all(callable(getattr(ot, n)) for n in ('load_study', 'delete_study', 'copy_study',\n"
+        "                                              'get_all_study_names', 'get_all_study_summaries'))\n"
+        "assert all(getattr(ot.storages, n) for n in ('RetryingStorage', 'RetryPolicy', 'TransientStorageError',\n"
+        "    'RetryFailedTrialCallback', 'RetryHeartbeatStaleTrialCallback', 'fail_stale_trials'))\n"
+        "assert ot.study.MaxTrialsCallback and ot.Study.trials_dataframe\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] == 'pandas')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _module_level_roots(path: Path) -> set[str]:
+    """Roots imported at a module's top level, ``if TYPE_CHECKING:`` blocks
+    left out."""
+    roots = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.If) and "TYPE_CHECKING" in ast.unparse(node.test):
+            continue
+        for sub in ast.walk(node) if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) else ():
+            if isinstance(sub, ast.Import):
+                roots.update(alias.name.split(".")[0] for alias in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0 and sub.module:
+                roots.add(sub.module.split(".")[0])
+    return roots
+
+
+def test_pandas_and_tqdm_are_imported_only_where_used():
+    """The card host has neither: no module of the port imports them at its
+    top level, and ``chip_smoke.py`` never."""
+    for path in sorted(PACKAGE.rglob("*.py")):
+        assert not (_module_level_roots(path) & {"pandas", "tqdm"}), path
+    assert not (_imported_roots(REPO / "chip_smoke.py") & {"pandas", "tqdm"})
