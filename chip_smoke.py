@@ -20,8 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
    plain peeling loop, at (512, 2), (640, 5) with padding, (128, 3),
    (96, 40), a chain of 2048 fronts and (8192, 2); the WFG stack kernel (K3
    on the hypervolume path) bit for bit and node for node against the
-   plain stack loop on the card, at the 512-point root and the fronts of
-   32 and 64 that phase 12 times.
+   plain stack loop on the card, at the 512-point root, the fronts of
+   32 and 64 that phase 17 times, and the (512, 17, 5) candidate roots of
+   the HSSP's first greedy step (phase 21).
 3. A small sparse reduction on the card against the same code on the CPU.
 4. Exact engine: a GPSampler study on Hartmann-20D with 1000 seeded completed
    trials, then 3 GP asks.
@@ -90,10 +91,33 @@ Phases (any failure exits non-zero and prints no result line):
     identical to the unwrapped run; a NaN proposal degrades exactly trial
     30 (``sampler_fallback:relative``); a ``KernelBuildError`` from the
     wrapped sampler propagates, with no fallback.
+20. The hypervolume slicing engine on the card through the routed
+    functions: M = 3 at 1500 sphere points, M = 4 at 256, the leave-one-out
+    at M = 3 over 128 points, against the host float64 oracle and the CPU.
+21. The device HSSP at ``bench.py::run_hv_selection``'s shapes (512
+    ``RandomState(0)`` uniform points, M = 5, ``ones(5)``, k = 16): K3 must
+    launch exactly 16 times (one a greedy step); the picks equal the CPU's
+    (the plain stack loop) and the host lazy greedy's, or part only at a
+    near tie; the picks' hypervolume within 1e-3 of float64. Then M = 3 at
+    256 points through the slicing scorer (no launch).
+22. NSGA-III on ZDT1 (population 256, 1024 trials) on the card and the CPU:
+    identical trial for trial; generations 2 and 3 rank 512 trials through
+    K2.
+23. MOTPE on three-objective DTLZ2 (12 variables) on the card until the
+    split's HSSP has taken the device route 5 times (the first rank reaches
+    128 points); how many trials that took.
+24. CMA-ES, BASELINE.md config #3: ``CmaEsSampler(seed=0, popsize=40)`` on
+    50-D Rastrigin, 2000 trials (the config's 5000 cut for time), twice on
+    the card (identical) and once on the CPU; ms per trial over trials
+    500-1999, kernels and synchronizing calls of a generation; then
+    ``use_separable_cma``, ``lr_adapt``, ``with_margin`` (int/float) and
+    IPOP for 200 trials each on the card.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19) and read just after it; every kernel must
-have launched on its path, the single-objective TPE phases none, and the
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24) and read just after it;
+every kernel must have launched on its path, the single-objective TPE and
+CMA-ES phases none, K3 exactly twice on phase 7 and 16 times on phase 21,
+and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -299,11 +323,21 @@ def print_times(
     return row
 
 
+#: The host-side CUDA calls that put one kernel or one copy on the card.
+LAUNCH_CALLS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync", "cudaMemset",
+})
+
+
 def device_kernels(fn, calls: int = 10) -> int:
-    """Kernels one call of ``fn`` runs on the card: ``torch.profiler``'s count
-    over ``calls`` calls, divided by ``calls`` and rounded (a trace can miss
-    its first kernel)."""
+    """Kernels (and copies) one call of ``fn`` puts on the card: the launch and
+    copy calls the host makes, as ``torch.profiler`` records them on the host
+    side, over ``calls`` calls, divided by ``calls`` and rounded. The host's
+    calls are recorded synchronously; the device's activity records can miss
+    the first few of a trace, by a number that follows the process's state."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -312,7 +346,8 @@ def device_kernels(fn, calls: int = 10) -> int:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return round(device_profile(prof)[1] / calls)
+    launched = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CUDA and e.key in LAUNCH_CALLS)
+    return round(launched / calls)
 
 
 def matern_inputs(n1, n2, d, n_cat, seed, device):
@@ -587,7 +622,7 @@ def stack_work(pts0, m0) -> tuple[int, int]:
 def phase_wfg_stack(device) -> dict:
     """The stack kernel against the plain stack loop, both on the card: the
     same bits and the same node count at the 512-point root and at the
-    fronts of 32 and 64 that phase 12 times; then its time at the root."""
+    fronts of 32 and 64 that phase 17 times; then its time at the root."""
     import torch
 
     from optuna_tpu_torch.ops.kernels import wfg
@@ -1868,6 +1903,357 @@ def phase_wrappers(gpu: str) -> None:
     )
 
 
+# ------------------------------- the rest of multi-objective, CMA-ES (20-24)
+
+HSSP_N, HSSP_M, HSSP_K = 512, 5, 16  # bench.py::run_hv_selection at full width
+SLICE_TOL_F64 = 1e-4  # f32 slicing against the f64 oracle (tests/test_hypervolume.py: rtol 1e-4)
+SLICE_TOL_CPU = 1e-5  # the same torch ops on the card and the CPU, sums in another order
+HSSP_TIE = 1e-5  # two greedy picks part only if their f64 gains differ by at most this share of the selection's HV
+HSSP_HV_TOL = 1e-3  # hypervolume of the selected set on the card (f32 stack) against f64
+MOTPE3_HSSP, MOTPE3_MAX_TRIALS, DTLZ2_DIM = 5, 1500, 12  # device HSSP asks to reach, the cap, DTLZ2's variables
+CMA_DIM, CMA_POP, CMA_TRIALS, CMA_WARMUP = 50, 40, 2000, 500  # config #3 (bench.py --config cmaes), cut from 5000
+CMA_VARIANT_TRIALS = 200
+
+
+def sphere_front(n: int, m: int, seed: int) -> np.ndarray:
+    """``n`` points on the positive unit sphere, mapped to ``1 - 0.9 u``: all
+    non-dominated, inside the reference point ``ones(m)``."""
+    rng = np.random.RandomState(seed)
+    raw = np.abs(rng.normal(size=(n, m))) + 1e-3
+    return 1.0 - 0.9 * raw / np.linalg.norm(raw, axis=1, keepdims=True)
+
+
+def timed(fn):
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_slicing() -> None:
+    """The slicing engine on the card through the routed functions: M = 3 at
+    1500 sphere points and M = 4 at 256, and the leave-one-out at M = 3 over
+    128 points, against the host f64 oracle and ``device="cpu"``."""
+    from optuna_tpu_torch.hypervolume import compute_hypervolume, loo_contributions
+    from optuna_tpu_torch.hypervolume.wfg import compute_hypervolume as host_hv
+
+    for m, n in ((3, 1500), (4, 256)):
+        front, ref = sphere_front(n, m, seed=m), np.ones(m)
+        compute_hypervolume(front, ref)  # first call: allocator and library set-up
+        card, card_s = timed(lambda: compute_hypervolume(front, ref))
+        cpu, cpu_s = timed(lambda: compute_hypervolume(front, ref, device="cpu"))
+        oracle, oracle_s = timed(lambda: host_hv(front, ref, assume_pareto=True))
+        e64, ecpu = abs(card - oracle) / oracle, abs(card - cpu) / cpu
+        print(
+            f"slicing M={m}, {n} sphere points (all non-dominated; route threshold "
+            f"{'1024' if m == 3 else '64'}): card {card:.9f} in {card_s:.4f} s, CPU {cpu:.9f} in {cpu_s:.3f} s, host "
+            f"f64 {oracle:.9f} in {oracle_s:.3f} s; rel err vs f64 {e64:.3e} (tolerance {SLICE_TOL_F64}), vs CPU "
+            f"{ecpu:.3e} (tolerance {SLICE_TOL_CPU})"
+        )
+        if not (math.isfinite(card) and e64 <= SLICE_TOL_F64 and ecpu <= SLICE_TOL_CPU):
+            fail(f"slicing M={m}: the card disagrees with the f64 oracle or the CPU")
+    front, ref = sphere_front(128, 3, seed=5), np.ones(3)
+    loo_contributions(front, ref)
+    card, card_s = timed(lambda: loo_contributions(front, ref))
+    cpu, cpu_s = timed(lambda: loo_contributions(front, ref, device="cpu"))
+    want, oracle_s = timed(lambda: host_loo(front, ref))
+    total = host_hv(front, ref, assume_pareto=True)
+    err, err_cpu = float(np.max(np.abs(card - want))) / total, float(np.max(np.abs(card - cpu))) / total
+    print(
+        f"slicing leave-one-out M=3, 128 points: card {card_s:.4f} s, CPU {cpu_s:.3f} s, host oracle {oracle_s:.3f} "
+        f"s; max |card - oracle| / total {err:.3e} (tolerance {LOO_TOL}), |card - CPU| / total {err_cpu:.3e} "
+        f"(tolerance {SLICE_TOL_CPU}); {int(np.sum(card > 0))} positive"
+    )
+    if not (np.isfinite(card).all() and err <= LOO_TOL and err_cpu <= SLICE_TOL_CPU):
+        fail("slicing leave-one-out disagrees with the host oracle or the CPU")
+
+
+def parting_gap(got: np.ndarray, want: np.ndarray, pts: np.ndarray, ref: np.ndarray):
+    """``None`` when two greedy selections are equal; else ``(step, gap)``
+    at their first parting, the gap of the two picks' f64 gains over the
+    f64 hypervolume of the selection up to that step."""
+    from optuna_tpu_torch.hypervolume.wfg import _compute_hv_recursive
+
+    for step, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            base = _compute_hv_recursive(pts[list(want[:step])], ref) if step else 0.0
+            gains = [_compute_hv_recursive(pts[list(want[:step]) + [i]], ref) - base for i in (g, w)]
+            return step, abs(gains[0] - gains[1]) / _compute_hv_recursive(pts[list(want[: step + 1])], ref)
+    return None
+
+
+def hssp_stack_check(device) -> None:
+    """K3 at the HSSP's shapes: the first greedy step's (512, 17, 5) candidate
+    roots through the stack kernel and the plain stack loop on the card,
+    the same bits and node counts. Before the path's counters are reset."""
+    import torch
+
+    from optuna_tpu_torch.ops import hypervolume as ops_hv
+    from optuna_tpu_torch.ops import wfg as ops_wfg
+    from optuna_tpu_torch.ops.kernels import wfg as kernels
+
+    front = np.random.RandomState(0).uniform(0.0, 1.0, size=(HSSP_N, HSSP_M))
+    pts, _ = ops_hv._padded(front, np.ones(HSSP_M), device)
+    ref = torch.ones(HSSP_M, device=device)
+    k_pad = HSSP_K
+    cand = torch.cat([ref.expand(len(pts), k_pad, HSSP_M), pts[:, None, :]], dim=1)
+    roots = ops_wfg._roots(cand, ref, torch.ones(cand.shape[:2], dtype=torch.bool, device=device))
+    acc, nodes = kernels.wfg_stack(*roots, ref)
+    plain_acc, plain_nodes = kernels.wfg_stack_plain(*roots, ref)
+    torch.cuda.synchronize()
+    same = torch.equal(acc, plain_acc) and torch.equal(nodes, plain_nodes)
+    print(f"wfg_stack at the HSSP's first step {tuple(roots[0].shape)}: bit-exact {same}, "
+          f"{int(nodes.sum())} nodes in all")
+    if not same:
+        fail("wfg_stack at the HSSP's shapes differs from the plain stack loop")
+
+
+def phase_hssp(stack) -> dict:
+    """The device HSSP at ``bench.py::run_hv_selection``'s shapes: 512
+    ``RandomState(0)`` uniform points, M = 5, ``ones(5)``, k = 16, through K3
+    (one launch a greedy step), against ``device="cpu"`` (the plain stack
+    loop) and the host lazy greedy (``hypervolume/hssp.py``); then M = 3 at
+    256 points through the slicing scorer, with no launch."""
+    from optuna_tpu_torch.hypervolume.hssp import solve_hssp as host_hssp
+    from optuna_tpu_torch.hypervolume.wfg import _compute_hv_recursive
+    from optuna_tpu_torch.ops.hypervolume import solve_hssp_device
+    from optuna_tpu_torch.ops.wfg import hypervolume_wfg_nd
+
+    out = {}
+    for m, n in ((HSSP_M, HSSP_N), (3, 256)):
+        front, ref = np.random.RandomState(0).uniform(0.0, 1.0, size=(n, m)), np.ones(m)
+        before = stack.STACK_LAUNCHES
+        card, card_s = timed(lambda: solve_hssp_device(front, ref, HSSP_K))
+        launches = stack.STACK_LAUNCHES - before
+        # The CPU has this process alone: the plain stack loop batches all
+        # candidates in one lockstep chunk (its bits do not depend on the chunk).
+        saved, stack._PLAIN_ELEMENTS = stack._PLAIN_ELEMENTS, 1 << 24
+        try:
+            cpu, cpu_s = timed(lambda: solve_hssp_device(front, ref, HSSP_K, device="cpu"))
+        finally:
+            stack._PLAIN_ELEMENTS = saved
+        host, host_s = timed(lambda: host_hssp(front, ref, HSSP_K))
+        gaps = {label: parting_gap(card, other, front, ref) for label, other in (("CPU", cpu), ("host", host))}
+        # The picks' f32 hypervolume by the plain stack (a check: no launch on the path's count).
+        hv_card = hypervolume_wfg_nd(front[card], ref, device="cpu") if m >= 5 else None
+        hv64 = _compute_hv_recursive(front[card], ref)
+        hv_err = abs(hv_card - hv64) / hv64 if hv_card is not None else 0.0
+        print(
+            f"HSSP M={m}, {n} uniform points, k={HSSP_K}: card {card_s:.4f} s ({launches} stack launches), CPU "
+            f"{cpu_s:.3f} s, host lazy greedy {host_s:.3f} s; card picks {card.tolist()}; parting from the CPU "
+            f"{gaps['CPU']}, from the host {gaps['host']} ((step, f64 gain gap / HV), tolerance {HSSP_TIE}); HV of the "
+            f"picks {hv64:.9f} (f64)" + (f", f32 stack {hv_card:.9f}, rel err {hv_err:.3e} (tolerance "
+                                         f"{HSSP_HV_TOL})" if hv_card is not None else "")
+        )
+        for label, gap in gaps.items():
+            if gap is not None and gap[1] > HSSP_TIE:
+                fail(f"HSSP M={m}: the card's selection parts from the {label}'s at step {gap[0]}, not at a near tie")
+        if hv_err > HSSP_HV_TOL or len(set(card.tolist())) != HSSP_K:
+            fail(f"HSSP M={m}: the selected set's hypervolume is off, or picks repeat")
+        expected = HSSP_K if m >= 5 else 0
+        if launches != expected:
+            fail(f"HSSP M={m}: wfg_stack launched {launches} times, expected {expected}")
+        out[m] = {"card_s": card_s, "cpu_s": cpu_s, "host_s": host_s, "launches": launches}
+    return out
+
+
+def run_nsga3(device_arg) -> tuple:
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import zdt1
+    from optuna_tpu_torch.samplers import NSGAIIISampler
+
+    kwargs = {} if device_arg is None else {"device": device_arg}
+    study = ot.create_study(
+        directions=["minimize", "minimize"], sampler=NSGAIIISampler(seed=0, population_size=NSGA_POP, **kwargs)
+    )
+    t0 = time.perf_counter()
+    study.optimize(lambda t: zdt1(t, dim=ZDT_DIM), n_trials=NSGA_TRIALS)
+    torch.cuda.synchronize()
+    return study, time.perf_counter() - t0
+
+
+def phase_nsga3(nds) -> dict:
+    """NSGA-III on config #4's ZDT1 at population 256, 1024 trials, on the
+    card and the CPU: identical trial for trial; generations 2 and 3 rank
+    512 trials through K2."""
+    before = nds.RANK_LAUNCHES
+    card, card_s = run_nsga3(None)
+    ranks = nds.RANK_LAUNCHES - before
+    cpu, cpu_s = run_nsga3("cpu")
+    if nsga_summary(card) != nsga_summary(cpu):
+        fail("NSGA-III: the study on the card differs from the same study on the CPU")
+    values = np.asarray([t.values for t in card.get_trials(deepcopy=False)])
+    if len(values) != NSGA_TRIALS or not np.isfinite(values).all():
+        fail("NSGA-III: missing or non-finite objective values")
+    if ranks < 2:
+        fail(f"NSGA-III: nds_rank launched {ranks} times over generations 2 and 3")
+    print(
+        f"NSGA-III ZDT1 (d={ZDT_DIM}, population {NSGA_POP}, {NSGA_TRIALS} trials): identical to the CPU run trial "
+        f"for trial; K2 ranked {ranks} times; card {card_s / NSGA_TRIALS * 1e3:.3f} ms/trial ({card_s:.2f} s), CPU "
+        f"{cpu_s / NSGA_TRIALS * 1e3:.3f} ms/trial ({cpu_s:.2f} s)"
+    )
+    return {"ranks": ranks, "ms": card_s / NSGA_TRIALS * 1e3}
+
+
+def dtlz2(trial, dim: int = DTLZ2_DIM, m: int = 3):
+    """DTLZ2 (Deb, Thiele, Laumanns and Zitzler 2002) on ``m`` objectives:
+    the front is the positive unit sphere at ``g = 0``."""
+    xs = [trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(dim)]
+    g = sum((x - 0.5) ** 2 for x in xs[m - 1:])
+    out = []
+    for i in range(m):
+        f = 1.0 + g
+        for x in xs[: m - 1 - i]:
+            f *= math.cos(x * math.pi / 2)
+        if i > 0:
+            f *= math.sin(xs[m - 1 - i] * math.pi / 2)
+        out.append(f)
+    return tuple(out)
+
+
+def phase_motpe3(stack, gpu: str) -> dict:
+    """MOTPE (``TPESampler(seed=0)``) on three-objective DTLZ2 with 12
+    variables, on the card, until the split's HSSP has taken the device
+    route ``MOTPE3_HSSP`` times (the first rank reaches 128 points)."""
+    from optuna_tpu_torch.ops import hypervolume as ops_hv
+
+    calls: list[int] = []
+    real = ops_hv.solve_hssp_device
+
+    def spy(points, *args, **kwargs):
+        calls.append(len(points))
+        return real(points, *args, **kwargs)
+
+    def stop(study, trial):
+        if len(calls) >= MOTPE3_HSSP:
+            study.stop()
+
+    before = stack.STACK_LAUNCHES
+    ops_hv.solve_hssp_device = spy
+    try:
+        study, stamps = tpe_study(dtlz2, MOTPE3_MAX_TRIALS, directions=["minimize"] * 3, callbacks=[stop])
+    finally:
+        ops_hv.solve_hssp_device = real
+    n = len(study.get_trials(deepcopy=False))
+    check_tpe_study("MOTPE DTLZ2", study, n)
+    if len(calls) < MOTPE3_HSSP:
+        fail(f"MOTPE DTLZ2: the device HSSP ran {len(calls)} times in {n} trials")
+    if stack.STACK_LAUNCHES != before:
+        fail("MOTPE DTLZ2: the three-objective HSSP launched the WFG stack: it scores by slicing")
+    first = n - len(calls)
+    ms = (stamps[-1] - stamps[first - 1]) / len(calls) * 1e3
+    early = (stamps[first - 1] - stamps[TPE_WARMUP - 1]) / (first - TPE_WARMUP) * 1e3
+    print(
+        f"MOTPE DTLZ2 (3 objectives, {DTLZ2_DIM} variables, seed 0; {gpu}): the device HSSP ran from trial {first} "
+        f"({n} trials in all; rank sizes {calls}); ms per trial {early:.3f} over trials {TPE_WARMUP}-{first - 1} "
+        f"(host HSSP), {ms:.3f} over the {len(calls)} asks through the device HSSP"
+    )
+    return {"trials": n, "first": first, "ms": ms}
+
+
+def cma_study(n_trials: int, device=None, objective=None, **kwargs):
+    """A seeded CMA-ES study (``device`` None is the card) and the host clock
+    after each trial."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import rastrigin
+    from optuna_tpu_torch.samplers import CmaEsSampler
+
+    sampler = CmaEsSampler(warn_independent_sampling=False, **({} if device is None else {"device": device}), **kwargs)
+    study = ot.create_study(sampler=sampler)
+    stamps: list[float] = []
+    study.optimize(objective or (lambda t: rastrigin(t, dim=CMA_DIM)), n_trials=n_trials,
+                   callbacks=[lambda s, t: stamps.append(time.perf_counter())])
+    torch.cuda.synchronize()
+    return study, sampler, stamps
+
+
+def cma_generation_costs(study) -> tuple[int, dict]:
+    """Kernels (profiler) and synchronizing calls (by repo line) of one
+    generation of config #3's study on the card: ``CMA_POP`` more trials,
+    one fused tell and ask and its one read among them."""
+    from optuna_tpu_torch.models.benchmarks import rastrigin
+
+    def generation():
+        study.optimize(lambda t: rastrigin(t, dim=CMA_DIM), n_trials=CMA_POP)
+
+    sites = sync_sites(generation)
+    return device_kernels(generation, calls=2), sites
+
+
+def phase_cmaes(gpu: str) -> dict:
+    """BASELINE.md config #3: ``CmaEsSampler(seed=0, popsize=40)`` on 50-D
+    Rastrigin, 2000 trials (50 generations; the config's 5000 cut for time),
+    twice on the card (identical) and once with ``device="cpu"``; then each
+    device branch for 200 trials on the card."""
+    card, sampler, stamps = cma_study(CMA_TRIALS, seed=0, popsize=CMA_POP)
+    twin, _, _ = cma_study(CMA_TRIALS, seed=0, popsize=CMA_POP)
+    cpu, _, cpu_stamps = cma_study(CMA_TRIALS, device="cpu", seed=0, popsize=CMA_POP)
+    check_tpe_study("CMA-ES", card, CMA_TRIALS)
+    if trial_rows(card) != trial_rows(twin):
+        fail("CMA-ES: the seeded study run twice on the card differs")
+    state, extra = sampler._restore_state(card)
+    gens = int(extra["generation"])
+    if state.mean.device.type != "cuda" or gens != CMA_TRIALS // CMA_POP - 1:
+        fail(f"CMA-ES: the state is on {state.mean.device} at generation {gens}")
+    ms, cpu_ms = warm_ms(stamps, CMA_WARMUP), warm_ms(cpu_stamps, CMA_WARMUP)
+    best = card.best_value  # before the generations the costs add
+    kernels, sites = cma_generation_costs(card)
+    syncs = sum(v for k, v in sites.items() if k.startswith("optuna_tpu_torch"))
+    print(
+        f"CMA-ES config #3 (Rastrigin d={CMA_DIM}, popsize {CMA_POP}, {CMA_TRIALS} trials, seed 0; {gpu}): twin "
+        f"identical; generation {gens} stored on the card; ms per trial over trials {CMA_WARMUP}-{CMA_TRIALS - 1}: "
+        f"card {ms:.3f}, CPU torch {cpu_ms:.3f}; best value card {best:.4f} (twin {twin.best_value:.4f}), "
+        f"CPU {cpu.best_value:.4f}; a generation's tell+ask+read: {kernels} kernels, {syncs} synchronizing calls "
+        f"({json.dumps(sites)})"
+    )
+
+    def mixed(trial):
+        k = trial.suggest_int("k", 0, 10)
+        j = trial.suggest_int("j", 0, 20, step=2)
+        xs = [trial.suggest_float(f"x{i}", -2.0, 2.0) for i in range(6)]
+        return float((k - 3) ** 2 + (j - 14) ** 2 + sum(x * x for x in xs))
+
+    def plateau(trial):
+        return 7.0 + 0.0 * sum(trial.suggest_float(f"x{i}", -5.12, 5.12) for i in range(10))
+
+    variants = {
+        "use_separable_cma": dict(use_separable_cma=True),
+        "lr_adapt": dict(lr_adapt=True),
+        "with_margin (int/float)": dict(with_margin=True, objective=mixed),
+        # A plateau trips tolfun after 10 flat generations: restarts on the card.
+        "restart_strategy=ipop, popsize 4 (plateau)": dict(restart_strategy="ipop", popsize=4, objective=plateau),
+    }
+    parts = []
+    for label, kwargs in variants.items():
+        kw = dict(kwargs)
+        objective = kw.pop("objective", None)
+        if objective is None:
+            from optuna_tpu_torch.models.benchmarks import rastrigin
+
+            objective = lambda t: rastrigin(t, dim=10)  # noqa: E731
+        study, vsampler, vstamps = cma_study(CMA_VARIANT_TRIALS, objective=objective, seed=0, **kw)
+        check_tpe_study(f"CMA-ES {label}", study, CMA_VARIANT_TRIALS)
+        vstate, vextra = vsampler._restore_state(study)
+        if vstate.mean.device.type != "cuda":
+            fail(f"CMA-ES {label}: the state left the card")
+        if "ipop" in label and not (int(vextra["n_restarts"]) >= 1 and int(vextra["popsize"]) >= 8):
+            fail(f"CMA-ES {label}: no IPOP restart on a plateau")
+        parts.append(
+            f"{label}: best {study.best_value:.4f}, generation {int(vextra['generation'])}, restarts "
+            f"{int(vextra['n_restarts'])} (popsize {int(vextra['popsize'])}), "
+            f"{(vstamps[-1] - vstamps[0]) / (len(vstamps) - 1) * 1e3:.3f} ms/trial"
+        )
+    print(f"CMA-ES variants on the card ({CMA_VARIANT_TRIALS} trials each; Rastrigin d=10 unless said): "
+          + "; ".join(parts))
+    return {"ms": ms, "cpu_ms": cpu_ms, "kernels": kernels, "syncs": syncs, "best": best}
+
+
 def main() -> None:
     try:
         import torch
@@ -1898,6 +2284,7 @@ def main() -> None:
         phase_matern(device), phase_nds(device), phase_nds_rank(device), phase_wfg_kernel(device),
         phase_wfg_stack(device),
     ]
+    hssp_stack_check(device)
     phase_small_sparse(device)
 
     def reset():
@@ -1948,12 +2335,33 @@ def main() -> None:
     phase_wrappers(gpu)
     runtime = counts()
     print(f"runtime phases 18-19: {time.perf_counter() - t_runtime:.1f} s, set-up and checks included")
+    t_slice = time.perf_counter()
+    reset()
+    phase_slicing()
+    hssp = phase_hssp(wrappers["wfg_stack"])
+    hssp_counts = counts()
+    reset()
+    nsga3 = phase_nsga3(wrappers["nds_rank"])
+    nsga3_counts = counts()
+    reset()
+    motpe3 = phase_motpe3(wrappers["wfg_stack"], gpu)
+    motpe3_counts = counts()
+    print(f"multi-objective phases 20-23: {time.perf_counter() - t_slice:.1f} s, set-up and checks included")
+    t_cma = time.perf_counter()
+    reset()
+    cma = phase_cmaes(gpu)
+    cma_counts = counts()
+    print(f"CMA-ES phase 24: {time.perf_counter() - t_cma:.1f} s, set-up and checks included")
+    if any(cma_counts.values()):
+        fail(f"the CMA-ES paths launched kernels of the repo: {cma_counts}")
     if any(tpe_counts.values()):
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"],
-        "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"],
-        "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"],
+        "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
+        + motpe3_counts["nds_rank"],
+        "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
+        + motpe3_counts["wfg_stack"],
     }
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
@@ -1962,7 +2370,7 @@ def main() -> None:
         f"{scan_sparse['chunks']} chunks and {int(scan_sparse['gauges']['device.gp.inducing_swaps.total'])} swaps"
         f"{', profiled chunks included' if profile_asks else ''}; MOTPE K2 {motpe['launches']}; runtime phases "
         f"{runtime}: K1 {threads_gp['k1']} over the threaded sparse asks, K2 {threads_nsga['ranks']} from the "
-        f"NSGA-II workers)"
+        f"NSGA-II workers); slicing and HSSP {hssp_counts}; NSGA-III {nsga3_counts}; MOTPE DTLZ2 {motpe3_counts})"
     )
     for name, count in launches.items():
         if count < 1:
@@ -1971,9 +2379,13 @@ def main() -> None:
         fail(f"matern52_gram launched {sparse_launches} times over the sparse asks")
     if launches["nds_rank"] < 2:
         fail(f"nds_rank launched {launches['nds_rank']} times over NSGA-II generations 2 and 3")
-    if launches["wfg_stack"] != 2:
-        fail(f"wfg_stack launched {launches['wfg_stack']} times, expected 1 per hypervolume and 1 per leave-one-out")
-    paths = (gp, nsga, hv, scan, motpe_counts, runtime)
+    if hv["wfg_stack"] != 2:
+        fail(f"wfg_stack launched {hv['wfg_stack']} times on the hypervolume path, expected 1 per hypervolume and 1 "
+             "per leave-one-out")
+    if hssp_counts["wfg_stack"] != HSSP_K or launches["wfg_stack"] != 2 + HSSP_K:
+        fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
+             f"step), and {launches['wfg_stack']} in all")
+    paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -1996,7 +2408,9 @@ def main() -> None:
         f"trials, TPE n_jobs=1/{RUNTIME_JOBS} {threads_tpe[1]['ms']:.3f}/{threads_tpe[RUNTIME_JOBS]['ms']:.3f} "
         f"ms/trial, warm sparse GP asks sequential {threads_gp['seq_ask_s']:.3f} s / at n_jobs=2 "
         f"{threads_gp['thr_ask_s']:.3f} s an ask, NSGA-II n_jobs={RUNTIME_JOBS} {threads_nsga['ms']:.3f} ms/trial, "
-        f"total {time.perf_counter() - t_start:.1f} s"
+        f"HSSP 512x5 k=16 {hssp[HSSP_M]['card_s']:.3f} s, NSGA-III {nsga3['ms']:.3f} ms/trial, MOTPE DTLZ2 "
+        f"{motpe3['ms']:.3f} ms/trial through the device HSSP, CMA-ES config #3 {cma['ms']:.3f} ms/trial (CPU torch "
+        f"{cma['cpu_ms']:.3f}), total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,6 +1,6 @@
 """optuna_tpu_torch — the PyTorch/CUDA port of ``optuna_tpu``.
 
-The port runs beside the JAX package, which stays the reference. Four
+The port runs beside the JAX package, which stays the reference. Five
 paths are ported, on in-memory storage (with the retrying and caching
 wrappers, heartbeats and retry callbacks) and the study runtime around
 them (``n_jobs`` threads, the progress bar, study management, the Grid,
@@ -12,8 +12,12 @@ BruteForce and PartialFixed samplers, ``GuardedSampler``):
 * **GP per trial**: ``create_study`` → ``Study.optimize`` → ``GPSampler``
   (exact engine, and the SGPR engine above ``n_exact_max``);
 * **multi-objective**: ``NSGAIISampler`` (the default sampler of a
-  multi-objective study) and the hypervolume indicator
-  (``hypervolume.compute_hypervolume``, leave-one-out contributions);
+  multi-objective study), ``NSGAIIISampler`` and the hypervolume
+  indicator (``hypervolume.compute_hypervolume``, leave-one-out
+  contributions, the greedy subset selection ``solve_hssp``) at any number
+  of objectives;
+* **CMA-ES and QMC**: ``CmaEsSampler`` (its state on the card) and
+  ``QMCSampler``;
 * **scan**: ``Study.optimize_scan`` / ``parallel.optimize_scan``, the
   device-resident ask → evaluate → tell loop over a batched objective
   (``parallel.VectorizedObjective``), exact and SGPR chunks.
@@ -21,7 +25,8 @@ BruteForce and PartialFixed samplers, ``GuardedSampler``):
 Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
 (``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the
 non-domination ranking (NSGA-II, and MOTPE's split), the WFG hypervolume
-stack; TPE's plane is plain torch ops batched over the dimensions. Numerical entry points run on ``cuda``
+stack (also the HSSP's scorer at five objectives or more); TPE's plane,
+the hypervolume slicing engine and CMA-ES are plain torch ops. Numerical entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; with no GPU they raise instead
 of moving to the CPU.
 """

@@ -8,12 +8,11 @@ cummin trick ``wfg.py:8-39``, ND WFG recursion ``wfg.py:41-107``, greedy HSSP
 Dispatch, with the reference's routing and thresholds: the host NumPy
 implementations are authoritative for small inputs; large fronts route to
 the device. M >= 5 routes to the WFG stack machine in
-:mod:`optuna_tpu_torch.ops.wfg`; the 2-D leave-one-out to
-:mod:`optuna_tpu_torch.ops.hypervolume`. The slicing engine behind the
-M in {3, 4} routes and the device HSSP is not ported yet (``ROADMAP.md``
-A6): those routes raise :class:`NotImplementedError` rather than run on
-the host. Every public function takes ``device`` (``None``: the card),
-resolved only when a device route is taken.
+:mod:`optuna_tpu_torch.ops.wfg`; M in {3, 4} to the slicing engine, the
+2-D leave-one-out to the windowed scan and the greedy HSSP at M >= 3 to
+the device HSSP, all in :mod:`optuna_tpu_torch.ops.hypervolume`. Every
+public function takes ``device`` (``None``: the card), resolved only when
+a device route is taken.
 """
 
 from __future__ import annotations
@@ -30,12 +29,6 @@ from optuna_tpu_torch.hypervolume.wfg import compute_hypervolume as _compute_hyp
 # re-measures them on the H100.
 _DEVICE_MIN_FRONT = {3: 1024, 4: 64}
 _DEVICE_MIN_FRONT_WFG = 32  # applies to every M >= 5
-
-_SLICING_TODO = (
-    "the hypervolume slicing engine for {what} (optuna_tpu/ops/hypervolume.py) is not "
-    "ported yet: ROADMAP.md item A6"
-)
-
 
 def _normalize_for_device(
     front: np.ndarray, reference_point: np.ndarray
@@ -68,7 +61,8 @@ def compute_hypervolume(
     """Hypervolume dominated by ``loss_vals`` w.r.t. ``reference_point``.
 
     Routed entry (reference ``optuna/_hypervolume/wfg.py:110``): host NumPy
-    below the thresholds, the device WFG stack above them at M >= 5.
+    below the thresholds, the device slicing engine (M in {3, 4}) or WFG
+    stack (M >= 5) above them.
     """
     loss_vals = np.asarray(loss_vals, dtype=np.float64)
     reference_point = np.asarray(reference_point, dtype=np.float64)
@@ -89,7 +83,9 @@ def compute_hypervolume(
                     from optuna_tpu_torch.ops.wfg import hypervolume_wfg_nd
 
                     return hypervolume_wfg_nd(unit, unit_ref, device=device) * volume
-                raise NotImplementedError(_SLICING_TODO.format(what=f"M = {m}"))
+                from optuna_tpu_torch.ops.hypervolume import hypervolume_nd
+
+                return hypervolume_nd(unit, unit_ref, device=device) * volume
         return _compute_hypervolume_host(front, reference_point, assume_pareto=True)
     return _compute_hypervolume_host(loss_vals, reference_point, assume_pareto)
 
@@ -100,8 +96,9 @@ def loo_contributions(
     """Exclusive (leave-one-out) hypervolume contribution per point, routed.
 
     The MOTPE below-weights primitive (reference ``_tpe/sampler.py:873``): 2D
-    uses the windowed scan, M >= 5 the WFG stack, on the device above their
-    thresholds; small inputs fall back to host leave-one-out. Per-coordinate
+    uses the windowed scan, M in {3, 4} the slicing pipeline, M >= 5 the WFG
+    stack, on the device above their thresholds; small inputs fall back to
+    host leave-one-out. Per-coordinate
     normalization scales every contribution by the same ``prod(scale)``,
     which is multiplied back before returning.
     """
@@ -133,7 +130,9 @@ def loo_contributions(
                 from optuna_tpu_torch.ops.wfg import wfg_loo_nd
 
                 return np.maximum(wfg_loo_nd(unit, unit_ref, device=device), 0.0) * volume
-            raise NotImplementedError(_SLICING_TODO.format(what=f"M = {m}"))
+            from optuna_tpu_torch.ops.hypervolume import hypervolume_loo_nd
+
+            return np.maximum(hypervolume_loo_nd(unit, unit_ref, device=device), 0.0) * volume
     hv_total = _compute_hypervolume_host(loss_vals, reference_point)
     out = np.zeros(n)
     for i in range(n):
@@ -151,14 +150,20 @@ def solve_hssp(
     device=None,
 ) -> np.ndarray:
     """Greedy hypervolume subset selection, routed like
-    :func:`compute_hypervolume` (reference ``optuna/_hypervolume/hssp.py:45``).
-    ``device`` is kept for the device route, which raises until it is ported."""
+    :func:`compute_hypervolume` (reference ``optuna/_hypervolume/hssp.py:45``):
+    the device greedy at M >= 3 from 128 points, the host lazy greedy below."""
     rank_i_loss_vals = np.asarray(rank_i_loss_vals, dtype=np.float64)
     m = rank_i_loss_vals.shape[1] if rank_i_loss_vals.ndim == 2 else 0
     if m >= 3 and len(rank_i_loss_vals) >= 128 and subset_size < len(rank_i_loss_vals):
+        # Per-coordinate affine scaling multiplies every HV contribution by
+        # the same constant, so the greedy argmax sequence — hence the
+        # selected index set — is unchanged by normalization.
         norm = _normalize_for_device(rank_i_loss_vals, reference_point)
         if norm is not None:
-            raise NotImplementedError(_SLICING_TODO.format(what="the device HSSP"))
+            from optuna_tpu_torch.ops.hypervolume import solve_hssp_device
+
+            unit, unit_ref, _ = norm
+            return solve_hssp_device(unit, unit_ref, subset_size, device=device)
     return _solve_hssp_host(rank_i_loss_vals, reference_point, subset_size)
 
 

@@ -4,8 +4,8 @@ The port carries Branin, BASELINE.md configuration #1 (TPE); Hartmann-20D,
 configuration #2: Hartmann-6 on the first six of twenty unit-interval
 parameters, the other fourteen inert, as a define-by-run objective and as
 the batched objectives of the scan loop (``hartmann6_torch``,
-``hartmann20_torch``); ZDT1-3, configuration #4's two-objective problems;
-and ``highdim_mixed``, the 30-parameter mixed space of ``bench.py --config
+``hartmann20_torch``); 50-D Rastrigin, configuration #3 (CMA-ES); ZDT1-3,
+configuration #4's two-objective problems; and ``highdim_mixed``, the 30-parameter mixed space of ``bench.py --config
 tpe_highdim``.
 """
 
@@ -94,6 +94,14 @@ def hartmann20(trial) -> float:
     x6 = x[:6]
     inner = np.sum(_H6_A * (x6[None, :] - _H6_P) ** 2, axis=1)
     return float(-np.sum(_H6_ALPHA * np.exp(-inner)))
+
+
+# ------------------------------------------------------------- Rastrigin (nD)
+
+
+def rastrigin(trial, dim: int = 50) -> float:
+    x = np.array([trial.suggest_float(f"x{i}", -5.12, 5.12) for i in range(dim)])
+    return float(10 * dim + np.sum(x**2 - 10 * np.cos(2 * np.pi * x)))
 
 
 # ------------------------------------------------------------------ ZDT (2-obj)

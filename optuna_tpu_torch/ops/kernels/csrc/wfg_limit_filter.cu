@@ -24,7 +24,7 @@
 //    fault of the node step from a fault of the stack.
 //  * wfg_stack_kernel: whole hypervolumes. One block per sorted root frame
 //    runs the WFG stack machine of optuna_tpu_torch/ops/kernels/wfg.py::
-//    _stack_plain_one from the root to the empty stack: no host read, no
+//    _stack_plain from the root to the empty stack: no host read, no
 //    launch per node.
 //
 // What bounds it. A node is small: at (128, 5), about 1.6e5 compares and a

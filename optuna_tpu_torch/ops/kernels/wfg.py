@@ -61,22 +61,24 @@ def reset_stats() -> None:
 def limit_and_filter_plain(
     pts: torch.Tensor, p: torch.Tensor, eligible: torch.Tensor, ref: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(child_pts, child_msk)`` with broadcast ops (the reference's twin)."""
-    n = pts.shape[0]
-    child = torch.maximum(pts, p[None, :])
-    eff = torch.where(eligible[:, None], child, torch.inf)
-    leq = torch.all(eff[:, None, :] <= eff[None, :, :], dim=2)
-    strict = torch.any(eff[:, None, :] < eff[None, :, :], dim=2)
+    """``(child_pts, child_msk)`` with broadcast ops (the reference's twin).
+    Leading dims of ``pts`` (..., N, M), ``p`` (..., M) and ``eligible``
+    (..., N) are a batch of independent frames."""
+    n = pts.shape[-2]
+    child = torch.maximum(pts, p[..., None, :])
+    eff = torch.where(eligible[..., None], child, torch.inf)
+    leq = torch.all(eff[..., :, None, :] <= eff[..., None, :, :], dim=-1)
+    strict = torch.any(eff[..., :, None, :] < eff[..., None, :, :], dim=-1)
     idx = torch.arange(n, device=pts.device)
     earlier = idx[:, None] < idx[None, :]
-    dominated = torch.any(leq & (strict | earlier) & eligible[:, None], dim=0)
+    dominated = torch.any(leq & (strict | earlier) & eligible[..., :, None], dim=-2)
     child_msk = eligible & ~dominated
-    return torch.where(child_msk[:, None], child, ref[None, :]), child_msk
+    return torch.where(child_msk[..., None], child, ref), child_msk
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """(1,) index of the first True of ``mask`` (0 when there is none)."""
-    return torch.argmax(mask.to(torch.uint8)).reshape(1)
+    """Index of the first True along the last dim (0 where there is none)."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
 def _prod_last(x: torch.Tensor) -> torch.Tensor:
@@ -88,85 +90,94 @@ def _prod_last(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _row(stack: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
-    """``stack[at]`` for a (1,) index tensor, with no host read."""
-    return stack.index_select(0, at)[0]
+#: Elements of the (B, N, N, M) compare blocks of one batched plain body.
+#: Under torch's parallel grain (32,768), so every op of the plain loop runs
+#: on one thread: processes that share the CPU do not fight over threads.
+_PLAIN_ELEMENTS = 1 << 15
 
 
-def _stack_plain_one(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stack machine of one sorted root frame, one node step a body.
+def _stack_plain(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stack machine of B sorted root frames in lockstep, one node step
+    of every frame a body.
 
-    The whole stack lives on the tensors' device: ``s_pts (N+2, N, M)``,
-    ``s_msk``, ``s_cur``, ``s_sign`` and the 0-d ``depth`` and ``acc``. The
+    The whole stack lives on the tensors' device: ``s_pts (B, N+2, N, M)``,
+    ``s_msk``, ``s_cur``, ``s_sign`` and the (B,) ``depth`` and ``acc``. The
     body has no Python branch on a tensor value and no host read: it is
     written with ``torch.where`` and index tensors, as the reference's
-    ``lax.while_loop`` body is. At ``depth == 0`` it changes nothing (its
-    writes go to a spare frame, ``N + 1``). The host reads ``depth`` once
-    every :data:`NODES_PER_SYNC` bodies.
+    ``lax.while_loop`` body is. A frame at ``depth == 0`` changes nothing
+    (its writes go to a spare frame, ``N + 1``), so each frame adds the same
+    float32 terms in the same order as it would alone. The host reads the
+    deepest ``depth`` once every :data:`NODES_PER_SYNC` bodies.
     """
-    n, m = pts0.shape
+    b, n, m = pts0.shape
     dev = pts0.device
     spare = n + 1  # frame that absorbs the writes of a body run at depth 0
-    s_pts = torch.zeros((n + 2, n, m), dtype=pts0.dtype, device=dev)
-    s_pts[0] = pts0
-    s_msk = torch.zeros((n + 2, n), dtype=torch.bool, device=dev)
-    s_msk[0] = m0
-    s_cur = torch.zeros((n + 2,), dtype=torch.int64, device=dev)
-    s_sign = torch.zeros((n + 2,), dtype=pts0.dtype, device=dev)
-    s_sign[0] = 1.0
+    rows = torch.arange(b, device=dev)
+    s_pts = torch.zeros((b, n + 2, n, m), dtype=pts0.dtype, device=dev)
+    s_pts[:, 0] = pts0
+    s_msk = torch.zeros((b, n + 2, n), dtype=torch.bool, device=dev)
+    s_msk[:, 0] = m0
+    s_cur = torch.zeros((b, n + 2), dtype=torch.int64, device=dev)
+    s_sign = torch.zeros((b, n + 2), dtype=pts0.dtype, device=dev)
+    s_sign[:, 0] = 1.0
     idx = torch.arange(n, device=dev)
-    depth = torch.ones((), dtype=torch.int64, device=dev)
-    acc = torch.zeros((), dtype=pts0.dtype, device=dev)
-    nodes = torch.zeros((), dtype=torch.int64, device=dev)
+    depth = torch.ones((b,), dtype=torch.int64, device=dev)
+    acc = torch.zeros((b,), dtype=pts0.dtype, device=dev)
+    nodes = torch.zeros((b,), dtype=torch.int64, device=dev)
 
     while True:
         for _ in range(NODES_PER_SYNC):
             active = depth > 0
-            top = torch.clamp(depth - 1, min=0).reshape(1)
-            pts = _row(s_pts, top)
-            msk = _row(s_msk, top)
-            sign = _row(s_sign, top)
-            cur = _row(s_cur, top)
-            remaining = msk & (idx >= cur)
-            has_more = torch.any(remaining) & active
+            top = torch.clamp(depth - 1, min=0)
+            pts = s_pts[rows, top]
+            msk = s_msk[rows, top]
+            sign = s_sign[rows, top]
+            cur = s_cur[rows, top]
+            remaining = msk & (idx >= cur[:, None])
+            has_more = torch.any(remaining, dim=-1) & active
             nxt = _first_true(remaining)
-            p = _row(pts, nxt)
+            p = pts[rows, nxt]
 
-            child_pts, child_msk = limit_and_filter_plain(pts, p, msk & (idx > nxt), ref)
-            n_child = torch.sum(child_msk)
+            child_pts, child_msk = limit_and_filter_plain(pts, p, msk & (idx > nxt[:, None]), ref)
+            n_child = torch.sum(child_msk, dim=-1)
             # The pivot's inclusive volume, and a one-point child's, which is
             # folded in place instead of pushed.
-            only = _row(child_pts, _first_true(child_msk))
+            only = child_pts[rows, _first_true(child_msk)]
             inc, inc_only = _prod_last(ref - torch.stack([p, only]))
             fold = torch.where(n_child == 1, sign * inc_only, 0.0)
             acc = acc + torch.where(has_more, sign * inc - fold, 0.0)
 
             do_push = has_more & (n_child > 1)
-            s_cur.index_copy_(0, top, torch.where(has_more, nxt + 1, cur.reshape(1)))
-            slot = torch.where(active, depth, spare).reshape(1)
-            s_pts.index_copy_(0, slot, child_pts[None])
-            s_msk.index_copy_(0, slot, (child_msk & do_push)[None])
-            s_cur.index_copy_(0, slot, torch.zeros_like(slot))
-            s_sign.index_copy_(0, slot, -sign.reshape(1))
+            s_cur[rows, top] = torch.where(has_more, nxt + 1, cur)
+            slot = torch.where(active, depth, spare)
+            s_pts[rows, slot] = child_pts
+            s_msk[rows, slot] = child_msk & do_push[:, None]
+            s_cur[rows, slot] = 0
+            s_sign[rows, slot] = -sign
             nodes = nodes + active.to(torch.int64)
             depth = torch.where(has_more, depth + do_push.to(torch.int64), depth - active.to(torch.int64))
         STATS["bodies"] += NODES_PER_SYNC
         STATS["syncs"] += 1
-        if int(depth) == 0:
+        if int(depth.max()) == 0:
             break
     return acc, nodes
 
 
 def wfg_stack_plain(pts0: torch.Tensor, m0: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(acc (B,), nodes (B,))``: the torch stack machine once per batch row."""
+    """``(acc (B,), nodes (B,))``: the torch stack machine over the batch, in
+    lockstep chunks of rows whose compare blocks hold at most
+    :data:`_PLAIN_ELEMENTS` elements. Each row gets the bits and the node
+    count it gets alone."""
+    b, n, m = pts0.shape
+    step = max(1, _PLAIN_ELEMENTS // (n * n * m))
     accs, counts = [], []
-    for b in range(pts0.shape[0]):
-        acc, nodes = _stack_plain_one(pts0[b], m0[b], ref)
+    for lo in range(0, b, step):
+        acc, nodes = _stack_plain(pts0[lo : lo + step], m0[lo : lo + step], ref)
         accs.append(acc)
         counts.append(nodes)
-    nodes = torch.stack(counts)
+    nodes = torch.cat(counts)
     STATS["nodes"] += int(nodes.sum())
-    return torch.stack(accs), nodes
+    return torch.cat(accs), nodes
 
 
 @functools.cache

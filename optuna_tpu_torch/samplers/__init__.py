@@ -11,13 +11,17 @@ from optuna_tpu_torch.samplers._lazy_random_state import LazyRandomState
 from optuna_tpu_torch.samplers._random import RandomSampler
 
 _LAZY = {
+    "BaseGASampler": "optuna_tpu_torch.samplers._ga._base",
     "BruteForceSampler": "optuna_tpu_torch.samplers._brute_force",
+    "CmaEsSampler": "optuna_tpu_torch.samplers._cmaes",
     "GPSampler": "optuna_tpu_torch.samplers._gp.sampler",
     "GridSampler": "optuna_tpu_torch.samplers._grid",
     "GuardedSampler": "optuna_tpu_torch.samplers._resilience",
     "MOTPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
     "NSGAIISampler": "optuna_tpu_torch.samplers.nsgaii",
+    "NSGAIIISampler": "optuna_tpu_torch.samplers._nsgaiii",
     "PartialFixedSampler": "optuna_tpu_torch.samplers._partial_fixed",
+    "QMCSampler": "optuna_tpu_torch.samplers._qmc",
     "TPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
 }
 

@@ -109,3 +109,24 @@ def reference_tpe_draws(monkeypatch):
 
     monkeypatch.setattr(_kernels, "univariate_draws", jax_univariate_draws)
     monkeypatch.setattr(_kernels, "joint_draws", jax_joint_draws)
+
+
+# --------------------------------------------- CMA-ES: the reference's draws
+
+
+def jax_cma_draws(seed, fold, n, d, device):
+    """The reference's ask draws, ``normal(fold_in(PRNGKey(seed), fold), (n, d))``
+    (``optuna_tpu/samplers/_cmaes.py``), laid out as the port's
+    ``ask_draws`` returns them."""
+    import jax
+
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), fold)
+    return torch.as_tensor(np.array(jax.random.normal(key, (n, d), dtype=np.float32))).to(device)
+
+
+@pytest.fixture
+def reference_cma_draws(monkeypatch):
+    """Hand the reference's draws to every CMA-ES ask of the port."""
+    from optuna_tpu_torch.ops import cmaes
+
+    monkeypatch.setattr(cmaes, "ask_draws", jax_cma_draws)

@@ -235,6 +235,48 @@ def _module_level_roots(path: Path) -> set[str]:
     return roots
 
 
+SLICE_MODULES = [
+    "optuna_tpu_torch.ops.cmaes",
+    "optuna_tpu_torch.ops.hypervolume",
+    "optuna_tpu_torch.ops.qmc",
+    "optuna_tpu_torch.samplers._cmaes",
+    "optuna_tpu_torch.samplers._nsgaiii",
+    "optuna_tpu_torch.samplers._nsgaiii._sampler",
+    "optuna_tpu_torch.samplers._qmc",
+]
+
+
+def test_the_cmaes_qmc_and_nsga3_modules_import_with_jax_and_the_reference_blocked():
+    assert set(SLICE_MODULES) <= set(_all_modules())
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "import optuna_tpu_torch as ot\n"
+        "for n in ('CmaEsSampler', 'QMCSampler', 'NSGAIIISampler', 'BaseGASampler'): getattr(ot.samplers, n)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_every_name_in_the_samplers_all_resolves():
+    from optuna_tpu_torch import samplers
+
+    for name in samplers.__all__:
+        assert getattr(samplers, name) is not None, name
+    assert {"BaseGASampler", "CmaEsSampler", "NSGAIIISampler", "QMCSampler"} <= set(samplers.__all__)
+    with pytest.raises(AttributeError):
+        samplers.NoSuchSampler  # noqa: B018
+
+
 def test_pandas_and_tqdm_are_imported_only_where_used():
     """The card host has neither: no module of the port imports them at its
     top level, and ``chip_smoke.py`` never."""

@@ -3,8 +3,8 @@
 The port's copy of the reference's shipped suites
 (``optuna_tpu_torch/testing/pytest_samplers.py``) over the port's samplers,
 each with ``device="cpu"`` where it takes one: Random, TPE (univariate,
-multivariate, multivariate + group), GP, NSGA-II, BruteForce (enumerable
-spaces only) and PartialFixed, as the reference's
+multivariate, multivariate + group), GP, CMA-ES, QMC, NSGA-II, NSGA-III,
+BruteForce (enumerable spaces only) and PartialFixed, as the reference's
 ``tests/test_sampler_contract.py`` runs its matrix. Grid needs an explicit
 grid and has its own cases. GP starts fitting at trial 5 (the reference's
 matrix: 3) and samples with a small acquisition pool
@@ -12,9 +12,8 @@ matrix: 3) and samples with a small acquisition pool
 down: every case still runs GP asks, and the contract does not depend on
 the pool's size.
 
-Left out until their samplers are ported: CMA-ES and QMC (ROADMAP A5),
-NSGA-III (A6); GP on several objectives (EHVI, A6) and with constraints
-(A2).
+Left out until they are ported: GP on several objectives (EHVI) and with
+constraints (both ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -26,10 +25,13 @@ import optuna_tpu_torch
 from optuna_tpu_torch import TrialState, create_study
 from optuna_tpu_torch.samplers import (
     BruteForceSampler,
+    CmaEsSampler,
     GPSampler,
     GridSampler,
+    NSGAIIISampler,
     NSGAIISampler,
     PartialFixedSampler,
+    QMCSampler,
     RandomSampler,
     TPESampler,
 )
@@ -55,7 +57,12 @@ SAMPLER_FACTORIES = {
         seed=kw.get("seed", 0), n_startup_trials=3, multivariate=True, group=True, device=CPU
     ),
     "gp": lambda **kw: GPSampler(seed=kw.get("seed", 0), n_startup_trials=5, device=CPU, **GP_POOL),
+    "cmaes": lambda **kw: CmaEsSampler(seed=kw.get("seed", 0), warn_independent_sampling=False, device=CPU),
+    "qmc": lambda **kw: QMCSampler(
+        seed=kw.get("seed", 0), warn_independent_sampling=False, warn_asynchronous_seeding=False
+    ),
     "nsga2": lambda **kw: NSGAIISampler(seed=kw.get("seed", 0), population_size=4, device=CPU),
+    "nsga3": lambda **kw: NSGAIIISampler(seed=kw.get("seed", 0), population_size=4, device=CPU),
     "bruteforce": lambda **kw: BruteForceSampler(seed=kw.get("seed", 0)),
     "partial-fixed": lambda **kw: PartialFixedSampler({"fixed": 0.5}, RandomSampler(seed=kw.get("seed", 0))),
     "partial-fixed-tpe": lambda **kw: PartialFixedSampler(
@@ -66,12 +73,13 @@ SAMPLER_FACTORIES = {
 # BruteForce only handles enumerable spaces; Grid needs an explicit grid —
 # they get their own cases instead of the generic continuous-space matrix.
 CONTINUOUS_CAPABLE = [k for k in SAMPLER_FACTORIES if k != "bruteforce"]
-MULTI_OBJECTIVE_CAPABLE = ["random", "tpe", "tpe-mv", "nsga2"]
-SEEDED_REPRODUCIBLE = ["random", "tpe", "tpe-mv", "gp", "nsga2", "partial-fixed"]
-RELATIVE_CAPABLE = ["tpe-mv", "gp"]
+MULTI_OBJECTIVE_CAPABLE = ["random", "tpe", "tpe-mv", "nsga2", "nsga3", "qmc"]
+SEEDED_REPRODUCIBLE = ["random", "tpe", "tpe-mv", "gp", "cmaes", "qmc", "nsga2", "nsga3", "partial-fixed"]
+RELATIVE_CAPABLE = ["tpe-mv", "gp", "cmaes"]
 CONSTRAINED_CAPABLE = {
     "tpe-c": lambda cfn: TPESampler(seed=0, n_startup_trials=3, constraints_func=cfn, device=CPU),
     "nsga2-c": lambda cfn: NSGAIISampler(seed=0, population_size=4, constraints_func=cfn, device=CPU),
+    "nsga3-c": lambda cfn: NSGAIIISampler(seed=0, population_size=4, constraints_func=cfn, device=CPU),
 }
 
 

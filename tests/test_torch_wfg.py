@@ -178,13 +178,25 @@ def test_routed_loo_contributions_equal_the_reference(m, n):
 
 
 def test_routes_to_the_missing_slicing_engine_raise():
+    """The three routes that raised ``NotImplementedError`` until the slicing
+    engine and the device HSSP were ported now compute the reference's
+    results (more cases in ``tests/test_torch_hypervolume.py``)."""
     rng = np.random.RandomState(0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        hypervolume.compute_hypervolume(rng.uniform(0, 1, size=(80, 4)), np.ones(4), assume_pareto=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        hypervolume.loo_contributions(rng.uniform(0, 1, size=(64, 3)), np.ones(3), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        hypervolume.solve_hssp(rng.uniform(0, 1, size=(128, 3)), np.ones(3), 8, device="cpu")
+    raw = np.abs(rng.normal(size=(80, 4))) + 1e-3
+    sphere = 1.0 - 0.9 * raw / np.linalg.norm(raw, axis=1, keepdims=True)  # 80 non-dominated points
+    assert hypervolume.compute_hypervolume(sphere, np.ones(4), assume_pareto=True, device="cpu") == pytest.approx(
+        ref_hv.compute_hypervolume(sphere, np.ones(4), assume_pareto=True), rel=1e-5
+    )
+    pts = rng.uniform(0, 1, size=(64, 3))
+    total = host_hv(pts, np.ones(3))  # a contribution is a difference of totals: its f32 error scales with them
+    np.testing.assert_allclose(
+        hypervolume.loo_contributions(pts, np.ones(3), device="cpu") / total,
+        ref_hv.loo_contributions(pts, np.ones(3)) / total, atol=1e-5,
+    )
+    pts = rng.uniform(0, 1, size=(128, 3))
+    np.testing.assert_array_equal(
+        hypervolume.solve_hssp(pts, np.ones(3), 8, device="cpu"), ref_hv.solve_hssp(pts, np.ones(3), 8)
+    )
 
 
 def test_host_routes_need_no_device_and_match_the_reference():
