@@ -68,7 +68,7 @@ Phases (any failure exits non-zero and prints no result line):
 14. Hyperband with TPE on the card: every trial's bracket is the crc32
     rule's, and the sampler reads only its bracket's trials.
 15. ``create_study()`` with no sampler samples with TPE on ``cuda``.
-16. MOTPE (TPE on two objectives) on ZDT1, 30 variables, 1024 trials: K2
+16. MOTPE (TPE on two objectives) on ZDT1, 30 variables, 640 trials: K2
     ranks the split on every ask from 512 complete trials and on none
     before; the first ranking equals the host's; the twin is identical.
 17. Host and card times at the reference's routing thresholds (rank at
@@ -112,9 +112,31 @@ Phases (any failure exits non-zero and prints no result line):
     500-1999, kernels and synchronizing calls of a generation; then
     ``use_separable_cma``, ``lr_adapt``, ``with_margin`` (int/float) and
     IPOP for 200 trials each on the card.
+25. GP config #2 as ``bench.py`` runs it, ``GPSampler(seed=0,
+    speculative_chain=8)`` on Hartmann-20D: 32 trials from 960 seeded ones
+    (4 exact chain dispatches, at 960, 968, 976 and 984 trials, all at
+    bucket 1024), 16 from 4000 (2 sparse dispatches, K1 exactly once each); ms per
+    trial beside phases 4 and 5's per-trial asks; a batch of 8
+    (``sample_relative_batch``) at each size: 8 points in the box, not all
+    one (the reference's test), with the distinct ones counted.
+26. Running trials (qLogEI from worker threads): ``n_jobs`` 2 and 4 from
+    1000 seeded trials, with an objective slower than an ask (0.2 s, then
+    held while an ask is in flight): at least asks less workers take
+    ``_build_qlogei`` (a script-side wrap), all COMPLETE; then 2 asks from
+    1000 and from 4000 beside a RUNNING trial, K1 once an ask from 4000
+    (the sparse host fit).
+27. Constraints: Hartmann-20D with ``sum(x) - 10 <= 0`` through
+    ``constraints_func``; 4 asks from 1000 seeded trials with constraint
+    attrs, 2 from 4000 with K1 exactly 2 an ask (objective and constraint).
+28. LogEHVI: ZDT1 (30 variables) 5 asks from 300 seeded trials, 3-objective
+    DTLZ2 (12 variables) 3 asks from 200; the box count, s an ask, the
+    kernels (and copies) of one more ask and the synchronizing calls of
+    another, K1 exactly 0; one ask on the card and one on the CPU from the
+    same 64 seeded trials and seed: proposals within 1e-3 (normalized), or
+    a near tie of LogEHVI.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24) and read just after it;
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28) and read just after it;
 every kernel must have launched on its path, the single-objective TPE and
 CMA-ES phases none, K3 exactly twice on phase 7 and 16 times on phase 21,
 and the
@@ -192,7 +214,7 @@ SCAN_FRESH_TRIALS = 48  # 16 startup trials, then chunks of 16 at buckets 32 and
 SCAN_LOSS_RTOL = 1e-4  # scan chunk card vs CPU: the fitted loss (tests/test_torch_scan_parity.py)
 SCAN_LOGEI_ATOL = 1e-3  # ... and the LogEI of the first proposals, the same points on both sides
 TPE_TRIALS, TPE_WARMUP = 300, 50  # bench.py --config tpe_highdim: 50 warm-up trials, then the timed window
-MOTPE_TRIALS = 1024  # two-objective TPE on ZDT1: asks from trial 512 on rank through K2
+MOTPE_TRIALS = 640  # two-objective TPE on ZDT1: asks from trial 512 on rank through K2 (1024 before PR 9)
 TPE_ASKS = 200  # asks packed from a study's own history, card against CPU
 # Card against CPU at the ask level, as measured on an H100 (PERF.md, Findings):
 # scores 1.81e-4 apart (of max(1, |score|)) and candidates 6.2e-5 of a width,
@@ -830,7 +852,10 @@ def phase_thresholds() -> None:
     print("routing thresholds (TPU-measured, kept; rank best of 3 calls, WFG one call a side): " + "; ".join(parts))
 
 
-def seeded_study(n_history: int, seed: int = 0):
+def seeded_study(n_history: int, seed: int = 0, constraint: bool = False, **sampler_kwargs):
+    """A Hartmann-20D GPSampler study with ``n_history`` seeded COMPLETE
+    trials; with ``constraint`` each carries the constraint attrs of
+    :func:`sum_constraint`."""
     import optuna_tpu_torch as ot
     from optuna_tpu_torch.distributions import FloatDistribution
     from optuna_tpu_torch.models.benchmarks import hartmann6_np
@@ -840,9 +865,12 @@ def seeded_study(n_history: int, seed: int = 0):
     X = rng.uniform(0.0, 1.0, size=(n_history, 20))
     values = hartmann6_np(X)
     dists = {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(20)}
-    study = ot.create_study(sampler=GPSampler(seed=seed))
+    study = ot.create_study(sampler=GPSampler(seed=seed, **sampler_kwargs))
     study.add_trials(
-        ot.create_trial(params={f"x{i}": float(row[i]) for i in range(20)}, distributions=dists, value=float(v))
+        ot.create_trial(
+            params={f"x{i}": float(row[i]) for i in range(20)}, distributions=dists, value=float(v),
+            system_attrs={"constraints": (float(row.sum()) - 10.0,)} if constraint else None,
+        )
         for row, v in zip(X, values)
     )
     return study
@@ -1432,7 +1460,7 @@ def host_ranks(values: np.ndarray) -> np.ndarray:
 
 def phase_motpe(nds, gpu: str) -> dict:
     """MOTPE (``TPESampler(seed=0)`` on a two-objective study) on ZDT1, 30
-    variables, 1024 trials: from 512 complete trials every ask's split ranks
+    variables, 640 trials: from 512 complete trials every ask's split ranks
     through K2 on the card, and none before; the first such ranking equals
     the host's; the seeded study run twice is identical."""
     import optuna_tpu_torch.study._multi_objective as mo
@@ -1477,7 +1505,7 @@ def phase_motpe(nds, gpu: str) -> dict:
         f"of the {len(late)} asks from 512 complete trials ({int(late.sum())} launches) and on none before; the "
         f"first ranking ({len(first['values'])} points, {int(first['ranks'].max()) + 1} fronts) equals the host's; "
         f"ms per trial: {early_ms:.3f} over trials {TPE_WARMUP}-{mo._DEVICE_RANK_MIN_POINTS - 1} (host split), "
-        f"{ms:.3f} over trials {mo._DEVICE_RANK_MIN_POINTS}-{MOTPE_TRIALS - 1} (K2 split); an ask past 1024 "
+        f"{ms:.3f} over trials {mo._DEVICE_RANK_MIN_POINTS}-{MOTPE_TRIALS - 1} (K2 split); an ask past {MOTPE_TRIALS} "
         f"trials: {kernels} kernels, {syncs:.2f} synchronizing calls ({json.dumps(sites)})"
     )
     return {"launches": launches, "ms": ms, "early_ms": early_ms}
@@ -2254,6 +2282,446 @@ def phase_cmaes(gpu: str) -> dict:
     return {"ms": ms, "cpu_ms": cpu_ms, "kernels": kernels, "syncs": syncs, "best": best}
 
 
+# ------------------------------------------------ the rest of the GP sampler (25-28)
+
+CHAIN_Q = 8  # bench.py's config #2: GPSampler(seed=0, speculative_chain=8)
+CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS = 960, 32  # 4 dispatches at n = 960 ... 984, all at bucket 1024
+CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS = 4000, 16  # 2 sparse dispatches, K1 once each
+RUNNING_TRIALS = {2: 3, 4: 5}  # n_jobs -> trials from 1000 seeded ones
+GP_CARD_CPU_TOL = 1e-3  # the first host-route ask on the card against the CPU, normalized space
+GP_TIE = 1e-3  # ... a parting is allowed only where the two winners' acquisition values are this close
+ZDT_GP_FROM, DTLZ_GP_FROM = 300, 200
+MO_PARITY_FROM = 64  # LogEHVI card against CPU: one ask each from this many seeded trials
+
+
+def sum_constraint(trial) -> tuple[float]:
+    """Phase 27's constraint on Hartmann-20D: feasible where the twenty
+    coordinates sum to at most 10 (about half the cube)."""
+    return (sum(trial.params[f"x{i}"] for i in range(20)) - 10.0,)
+
+
+class _Spy:
+    """Wraps ``owner.name`` from the script (the package holds no counter of
+    its own): counts the calls and keeps what ``record`` makes of each
+    call's arguments and result."""
+
+    def __init__(self, owner, name: str, record=None) -> None:
+        import threading
+
+        self.owner, self.name, self.real = owner, name, getattr(owner, name)
+        self.calls: list = []
+        lock = threading.Lock()
+
+        def spy(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            with lock:
+                self.calls.append(record(args, kwargs, out) if record else None)
+            return out
+
+        setattr(owner, name, spy)
+
+    def close(self) -> None:
+        setattr(self.owner, self.name, self.real)
+
+
+def hartmann_space() -> dict:
+    from optuna_tpu_torch.distributions import FloatDistribution
+
+    return {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(20)}
+
+
+def check_gp_trials(label: str, study, first: int, n_new: int) -> None:
+    import optuna_tpu_torch as ot
+
+    new = study.get_trials(deepcopy=False)[first:]
+    if len(new) != n_new or not all(t.state == ot.TrialState.COMPLETE for t in new):
+        fail(f"{label}: {len(new)} new trials, states {sorted({t.state.name for t in new})}, expected {n_new} COMPLETE")
+    for t in new:
+        if not (all(math.isfinite(v) for v in t.values) and all(0.0 <= x <= 1.0 for x in t.params.values())):
+            fail(f"{label}: trial {t.number} is non-finite or out of the box")
+
+
+def distinct_and_seen(study, rows) -> tuple[int, int]:
+    """How many of ``rows`` (params dicts) are distinct, and how many of
+    those repeat a finished trial's params exactly."""
+    seen = {tuple(t.params[f"x{i}"] for i in range(20)) for t in study.get_trials(deepcopy=False) if t.params}
+    keys = {tuple(p[f"x{i}"] for i in range(20)) for p in rows}
+    return len(keys), len(keys & seen)
+
+
+def check_batch(label: str, study, proposals: list) -> tuple[int, int]:
+    """A batch of ``CHAIN_Q`` finite points in the box that the fantasies
+    pushed apart (the reference's own test: not all one point). The chain
+    can return an observed point: where every pool candidate's LogEI
+    underflows below an incumbent's, the ascent starts at the incumbent,
+    where the Matérn gradient is 0, and stays (the reference does the same
+    on the same history); the distinct and repeated counts are printed."""
+    pts = np.array([[p[f"x{i}"] for i in range(20)] for p in proposals])
+    if pts.shape != (CHAIN_Q, 20) or not np.all(np.isfinite(pts) & (pts >= 0.0) & (pts <= 1.0)):
+        fail(f"{label}: sample_relative_batch gave {pts.shape}, expected {CHAIN_Q} points in the box")
+    distinct, repeated = distinct_and_seen(study, proposals)
+    if distinct < 2:
+        fail(f"{label}: the batch of {CHAIN_Q} is one point: the fantasies did not push the proposals apart")
+    return distinct, repeated
+
+
+def phase_chain(k1_count, exact_ask_s: list[float], sparse_ask_s: list[float]) -> dict:
+    """Config #2 as bench.py runs it: ``GPSampler(seed=0,
+    speculative_chain=8)`` on Hartmann-20D. 32 trials from 960 seeded ones
+    (4 exact chain dispatches at 960, 968, 976, 984 trials, bucket 1024), 16
+    from 4000 (2 sparse dispatches, K1 once each), a batch of 8 at each
+    size, beside the per-trial asks of phases 4 (n = 1000, the same bucket)
+    and 5 (n = 4000)."""
+    import torch
+
+    from optuna_tpu_torch.gp import fused
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+
+    out = {}
+    spy = _Spy(fused, "gp_suggest_chain_fused", lambda a, kw, o: (a[1].shape[0], a[5]))
+    try:
+        for label, n0, n_trials in (
+            ("exact", CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS), ("sparse", CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS),
+        ):
+            study = seeded_study(n0, speculative_chain=CHAIN_Q)
+            n0 = len(study.get_trials(deepcopy=False))
+            dispatches = _Spy(type(study.sampler), "_sample_chain")
+            before = k1_count()
+            t0 = time.perf_counter()
+            try:
+                study.optimize(hartmann20, n_trials=n_trials)
+                torch.cuda.synchronize()
+            finally:
+                dispatches.close()
+            seconds = time.perf_counter() - t0
+            k1 = k1_count() - before
+            check_gp_trials(f"chain {label}", study, n0, n_trials)
+            trials = study.get_trials(deepcopy=False)
+            chain_distinct = len({tuple(t.params.values()) for t in trials[n0:]})
+            if len(dispatches.calls) != n_trials // CHAIN_Q:
+                fail(f"chain {label}: {len(dispatches.calls)} chain dispatches for {n_trials} trials")
+            before = k1_count()
+            t1 = time.perf_counter()
+            batch = study.sampler.sample_relative_batch(study, hartmann_space(), CHAIN_Q)
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t1
+            k1_batch = k1_count() - before
+            distinct, repeated = check_batch(f"chain {label}", study, batch)
+            out[label] = {"ms": seconds / n_trials * 1e3, "k1": k1, "k1_batch": k1_batch, "batch_s": batch_s,
+                          "best": study.best_value, "trials_distinct": chain_distinct, "batch": (distinct, repeated)}
+    finally:
+        spy.close()
+    from optuna_tpu_torch.gp.gp import _bucket
+
+    # A dispatch's n counts distinct rows: a trial that repeats another's
+    # params (see check_batch) collapses into that row's count.
+    ns = list(range(CHAIN_EXACT_FROM, CHAIN_EXACT_FROM + CHAIN_EXACT_TRIALS + 1, CHAIN_Q))  # the last: the batch
+    rows = [n for _, n in spy.calls]
+    if (
+        len(spy.calls) != len(ns) or rows[0] != ns[0] or any(r > n for r, n in zip(rows, ns))
+        or any(b != _bucket(r + CHAIN_Q) or b != _bucket(ns[-1] + CHAIN_Q) for b, r in spy.calls)
+    ):
+        fail(f"chain exact: dispatches (bucket, n) {spy.calls} at {ns} trials, expected one bucket "
+             f"{_bucket(ns[-1] + CHAIN_Q)} holding n + {CHAIN_Q}")
+    expected = spy.calls[:-1]
+    if out["exact"]["k1"] or out["exact"]["k1_batch"]:
+        fail(f"chain exact: K1 launched {out['exact']['k1']} / {out['exact']['k1_batch']} times below n_exact_max")
+    if out["sparse"]["k1"] != CHAIN_SPARSE_TRIALS // CHAIN_Q or out["sparse"]["k1_batch"] != 1:
+        fail(f"chain sparse: K1 launched {out['sparse']['k1']} times over {CHAIN_SPARSE_TRIALS // CHAIN_Q} dispatches "
+             f"and {out['sparse']['k1_batch']} for the batch, expected once each")
+    print(
+        f"config #2 chain (GPSampler(seed=0, speculative_chain={CHAIN_Q}), Hartmann-20D): exact from "
+        f"{CHAIN_EXACT_FROM}, {CHAIN_EXACT_TRIALS} trials in {len(expected)} dispatches at (bucket, distinct rows) "
+        f"{expected}: "
+        f"{out['exact']['ms']:.1f} ms per trial, against {exact_ask_s[0] * 1e3:.1f} (cold) and "
+        f"{float(np.median(exact_ask_s[1:])) * 1e3:.1f} (warm median) ms per-trial asks (phase 4, n=1000); sparse from "
+        f"{CHAIN_SPARSE_FROM}, {CHAIN_SPARSE_TRIALS} "
+        f"trials: {out['sparse']['ms']:.1f} ms per trial (K1 {out['sparse']['k1']}), against "
+        f"{float(np.median(sparse_ask_s)) * 1e3:.1f} ms per-trial asks (phase 5's median at n=4000); distinct "
+        f"params among the chain's trials {out['exact']['trials_distinct']} / {out['sparse']['trials_distinct']}; batch "
+        f"of {CHAIN_Q}: {out['exact']['batch_s']:.3f} s exact, {out['sparse']['batch_s']:.3f} s sparse (K1 "
+        f"{out['sparse']['k1_batch']}), distinct points (of them equal to a trial's params) {out['exact']['batch']} / "
+        f"{out['sparse']['batch']}; best {out['exact']['best']:.6f} / {out['sparse']['best']:.6f}"
+    )
+    return out
+
+
+def _ask_in_flight():
+    """An in-flight count of the GP sampler's relative asks (a script-side
+    wrap) and an objective that runs Hartmann-20D, sleeps 0.2 s and then
+    holds until no ask is in flight: an objective slower than an ask, so
+    every ask after the workers' first finds another worker's trial RUNNING
+    with its params set."""
+    import threading
+
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+    from optuna_tpu_torch.samplers import GPSampler
+
+    state = {"n": 0}
+    lock = threading.Lock()
+    real = GPSampler.sample_relative
+
+    def sample_relative(self, *args, **kwargs):
+        with lock:
+            state["n"] += 1
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            with lock:
+                state["n"] -= 1
+
+    def objective(trial):
+        value = hartmann20(trial)
+        time.sleep(0.2)
+        deadline = time.perf_counter() + 60.0
+        while state["n"] and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        return value
+
+    GPSampler.sample_relative = sample_relative
+    return objective, lambda: setattr(GPSampler, "sample_relative", real)
+
+
+def add_running_trial(study) -> int:
+    """A RUNNING trial with its params set, as another worker leaves one;
+    returns its number."""
+    import optuna_tpu_torch as ot
+
+    params = {f"x{i}": 0.5 for i in range(20)}
+    study.add_trial(ot.create_trial(state=ot.TrialState.RUNNING, params=params, distributions=hartmann_space()))
+    return study.get_trials(deepcopy=False)[-1].number
+
+
+def phase_running(k1_count) -> dict:
+    """qLogEI from n_jobs worker threads on the card: 1000 seeded trials,
+    then trials at n_jobs 2 and 4; then 2 sequential asks beside a RUNNING
+    trial from 1000 (the exact host fit) and from 4000 (the sparse host
+    fit, K1 once an ask)."""
+    import torch
+
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+    from optuna_tpu_torch.samplers import GPSampler
+
+    out = {}
+    objective, restore = _ask_in_flight()
+    try:
+        for jobs, n_trials in RUNNING_TRIALS.items():
+            study = seeded_study(1000)
+            n0 = len(study.get_trials(deepcopy=False))
+            qlogei = _Spy(GPSampler, "_build_qlogei")
+            before = k1_count()
+            t0 = time.perf_counter()
+            try:
+                study.optimize(objective, n_trials=n_trials, n_jobs=jobs)
+                torch.cuda.synchronize()
+            finally:
+                qlogei.close()
+            seconds = time.perf_counter() - t0
+            check_gp_trials(f"running n_jobs={jobs}", study, n0, n_trials)
+            if len(qlogei.calls) < n_trials - jobs:
+                fail(f"running n_jobs={jobs}: {len(qlogei.calls)} of {n_trials} asks took qLogEI, expected at least "
+                     f"{n_trials - jobs}")
+            if k1_count() != before:
+                fail(f"running n_jobs={jobs}: K1 launched below n_exact_max")
+            out[jobs] = {"s": seconds, "qlogei": len(qlogei.calls), "trials": n_trials}
+    finally:
+        restore()
+    for label, n_seeded, k1_each in (("exact", 1000, 0), ("sparse", 4000, 1)):
+        study = seeded_study(n_seeded)
+        n0 = len(study.get_trials(deepcopy=False))
+        running = add_running_trial(study)
+        qlogei = _Spy(GPSampler, "_build_qlogei")
+        before = k1_count()
+        t0 = time.perf_counter()
+        try:
+            study.optimize(hartmann20, n_trials=2)
+            torch.cuda.synchronize()
+        finally:
+            qlogei.close()
+        ask_s = (time.perf_counter() - t0) / 2
+        k1 = k1_count() - before
+        study.tell(running, 1.0)
+        check_gp_trials(f"running {label}", study, n0, 3)
+        if len(qlogei.calls) != 2 or k1 != 2 * k1_each:
+            fail(f"running {label}: {len(qlogei.calls)} qLogEI asks and {k1} K1 launches, expected 2 and {2 * k1_each}")
+        out[label] = {"s": ask_s, "k1": k1}
+    print(
+        "running trials (qLogEI, Hartmann-20D, from 1000; objective 0.2 s then held while an ask is in flight): "
+        + "; ".join(f"n_jobs={j} {out[j]['trials']} trials in {out[j]['s']:.2f} s, {out[j]['qlogei']} asks through "
+                    "qLogEI" for j in RUNNING_TRIALS)
+        + f"; 2 sequential asks beside one RUNNING trial: {out['exact']['s']:.3f} s an ask from 1000, "
+        f"{out['sparse']['s']:.3f} s from 4000 (K1 {out['sparse']['k1']} over the 2); all COMPLETE"
+    )
+    return out
+
+
+def phase_constraints(k1_count) -> dict:
+    """Hartmann-20D with ``sum(x) - 10 <= 0`` through ``constraints_func``:
+    4 asks from 1000 seeded trials that carry constraint attrs, 2 from
+    4000 (K1 twice an ask: the objective's and the constraint's sparse
+    fits)."""
+    import torch
+
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+    from optuna_tpu_torch.samplers import GPSampler
+
+    out = {}
+    for n_seeded, asks, k1_each in ((1000, 4, 0), (4000, 2, 2)):
+        study = seeded_study(n_seeded, constraint=True, constraints_func=sum_constraint)
+        n0 = len(study.get_trials(deepcopy=False))
+        wraps = _Spy(GPSampler, "_wrap_constraints", lambda a, kw, o: o[0])
+        before = k1_count()
+        seconds = []
+        try:
+            for _ in range(asks):
+                t0 = time.perf_counter()
+                study.optimize(hartmann20, n_trials=1)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        finally:
+            wraps.close()
+        k1 = k1_count() - before
+        check_gp_trials(f"constraints n={n0}", study, n0, asks)
+        new = study.get_trials(deepcopy=False)[n0:]
+        if wraps.calls != ["constrained_logei"] * asks or any("constraints" not in t.system_attrs for t in new):
+            fail(f"constraints n={n0}: acquisitions {wraps.calls}, expected constrained_logei on every ask")
+        if k1 != k1_each * asks:
+            fail(f"constraints n={n0}: K1 launched {k1} times over {asks} asks, expected {k1_each * asks}")
+        feasible = sum(t.system_attrs["constraints"][0] <= 0 for t in new)
+        out[n_seeded] = {"s": seconds, "k1": k1, "feasible": feasible}
+    print(
+        "constraints (Hartmann-20D, sum(x) - 10 <= 0): "
+        + "; ".join(f"n={n}: seconds per ask {[round(x, 3) for x in o['s']]}, K1 {o['k1']}, "
+                    f"{o['feasible']} of {len(o['s'])} proposals feasible" for n, o in out.items())
+    )
+    return out
+
+
+class _Fixed:
+    """A trial stand-in that answers ``suggest_float`` from fixed params, to
+    seed a history through the objective's own code."""
+
+    def __init__(self, params: dict) -> None:
+        self.params = params
+
+    def suggest_float(self, name, low, high):
+        return self.params[name]
+
+
+def seeded_mo_study(objective, dim: int, n_obj: int, n_history: int, device=None):
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.distributions import FloatDistribution
+    from optuna_tpu_torch.samplers import GPSampler
+
+    rng = np.random.default_rng(0)
+    dists = {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(dim)}
+    study = ot.create_study(sampler=GPSampler(seed=0, device=device), directions=["minimize"] * n_obj)
+    rows = [{f"x{i}": float(v) for i, v in enumerate(row)} for row in rng.uniform(0.0, 1.0, size=(n_history, dim))]
+    study.add_trials(
+        ot.create_trial(params=p, distributions=dists, values=list(objective(_Fixed(p)))) for p in rows
+    )
+    return study
+
+
+def kernels_and_syncs(fn) -> tuple[int, dict]:
+    """Kernels ``fn`` puts on the card (the device's records of a CUDA-only
+    trace, counted from the raw results without building the operator
+    tables, which for an ask of ~10^5 kernels takes minutes) and its
+    synchronizing calls by line (:func:`sync_sites`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+    return kernels, sync_sites(fn)
+
+
+def first_proposal(objective, dim: int, n_obj: int, n0: int, device: str) -> tuple:
+    """(acquisition, box count, (x_best, value), seconds) of one LogEHVI ask
+    from ``n0`` seeded trials on ``device``."""
+    import torch
+
+    from optuna_tpu_torch.gp import optim_mixed
+
+    study = seeded_mo_study(objective, dim, n_obj, n0, device=device)
+    # The sampler imports the maximizer from its module at each ask.
+    om = _Spy(optim_mixed, "optimize_acqf_mixed", lambda a, kw, o: (a[0], a[1].box_lowers.shape[0], o))
+    t0 = time.perf_counter()
+    try:
+        study.optimize(objective, n_trials=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        om.close()
+    return (*om.calls[0], time.perf_counter() - t0)
+
+
+def phase_mo_gp(k1_count) -> dict:
+    """LogEHVI on the card: ZDT1 (30 variables, 2 objectives) 5 asks from
+    300 seeded trials, DTLZ2 (12 variables, 3 objectives) 3 asks from 200;
+    the box count, s an ask, the kernels of one more ask and the
+    synchronizing calls of another; then one ask on the card and one on the CPU from the same
+    ``MO_PARITY_FROM`` seeded trials (a CPU ask from 300 ZDT1 trials takes
+    ~100 s on the card's host)."""
+    import torch
+
+    from optuna_tpu_torch.gp import optim_mixed
+    from optuna_tpu_torch.models.benchmarks import zdt1
+
+    routes = (
+        ("ZDT1", lambda t: zdt1(t, dim=ZDT_DIM), ZDT_DIM, 2, ZDT_GP_FROM, 5),
+        ("DTLZ2", lambda t: dtlz2(t), DTLZ2_DIM, 3, DTLZ_GP_FROM, 3),
+    )
+    out = {}
+    for label, objective, dim, n_obj, n0, asks in routes:
+        study = seeded_mo_study(objective, dim, n_obj, n0)
+        om = _Spy(optim_mixed, "optimize_acqf_mixed", lambda a, kw, o: (a[0], a[1].box_lowers.shape[0]))
+        before = k1_count()
+        seconds = []
+        try:
+            for _ in range(asks):
+                t0 = time.perf_counter()
+                study.optimize(objective, n_trials=1)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        finally:
+            om.close()
+        k1 = k1_count() - before
+        check_gp_trials(f"LogEHVI {label}", study, n0, asks)
+        if any(c[0] != "logehvi" for c in om.calls) or k1:
+            fail(f"LogEHVI {label}: acquisitions {[c[0] for c in om.calls]}, K1 {k1} (expected 0 below n_exact_max)")
+        t0 = time.perf_counter()
+        kernels, sites = kernels_and_syncs(lambda: study.optimize(objective, n_trials=1))
+        trace_s = time.perf_counter() - t0
+        card = first_proposal(objective, dim, n_obj, MO_PARITY_FROM, "cuda")
+        cpu = first_proposal(objective, dim, n_obj, MO_PARITY_FROM, "cpu")
+        (x_card, v_card), (x_cpu, v_cpu) = card[2], cpu[2]
+        gap = float(np.max(np.abs(x_card - x_cpu)))
+        if gap > GP_CARD_CPU_TOL:
+            if abs(v_card - v_cpu) > GP_TIE * max(1.0, abs(v_cpu)):
+                fail(f"LogEHVI {label}: card and CPU proposals {gap:.2e} apart with LogEHVI {v_card:.6f} / "
+                     f"{v_cpu:.6f}: not a near tie")
+            print(f"LogEHVI {label}: card and CPU proposals part by {gap:.2e} at a near tie of LogEHVI "
+                  f"{v_card:.6f} / {v_cpu:.6f}")
+        out[label] = {"s": seconds, "boxes": [c[1] for c in om.calls], "kernels": kernels, "sites": sites,
+                      "trace_s": trace_s, "gap": gap, "pair_s": (card[3], cpu[3])}
+    print(
+        "LogEHVI: " + "; ".join(
+            f"{label} from {n0} ({n_obj} objectives): boxes {out[label]['boxes']}, seconds per ask "
+            f"{[round(x, 3) for x in out[label]['s']]}, one more ask: {out[label]['kernels']} kernels and copies, "
+            f"another {sum(out[label]['sites'].values())} synchronizing calls (top lines "
+            f"{json.dumps(dict(sorted(out[label]['sites'].items(), key=lambda kv: -kv[1])[:4]))}; traced twice in "
+            f"{out[label]['trace_s']:.1f} s); from {MO_PARITY_FROM}: card {out[label]['pair_s'][0]:.3f} s, "
+            f"CPU {out[label]['pair_s'][1]:.3f} s, proposals {out[label]['gap']:.2e} apart (normalized)"
+            for label, _, _, n_obj, n0, _ in routes
+        ) + "; K1 0"
+    )
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2352,12 +2820,25 @@ def main() -> None:
     cma = phase_cmaes(gpu)
     cma_counts = counts()
     print(f"CMA-ES phase 24: {time.perf_counter() - t_cma:.1f} s, set-up and checks included")
+    t_gp = time.perf_counter()
+    reset()
+    chain = phase_chain(k1_count, exact_s, sparse_s)
+    running = phase_running(k1_count)
+    constrained = phase_constraints(k1_count)
+    mo_gp = phase_mo_gp(k1_count)
+    gp_rest = counts()
+    print(f"GP phases 25-28: {time.perf_counter() - t_gp:.1f} s, set-up and checks included")
+    k1_rest = (chain["sparse"]["k1"] + chain["sparse"]["k1_batch"] + running["sparse"]["k1"]
+               + sum(o["k1"] for o in constrained.values()))
+    if gp_rest["matern52_gram"] != k1_rest or any(v for k, v in gp_rest.items() if k != "matern52_gram"):
+        fail(f"GP phases 25-28 launched {gp_rest}, expected K1 {k1_rest} and no other kernel")
     if any(cma_counts.values()):
         fail(f"the CMA-ES paths launched kernels of the repo: {cma_counts}")
     if any(tpe_counts.values()):
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
-        "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"],
+        "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
+        + gp_rest["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
@@ -2370,7 +2851,10 @@ def main() -> None:
         f"{scan_sparse['chunks']} chunks and {int(scan_sparse['gauges']['device.gp.inducing_swaps.total'])} swaps"
         f"{', profiled chunks included' if profile_asks else ''}; MOTPE K2 {motpe['launches']}; runtime phases "
         f"{runtime}: K1 {threads_gp['k1']} over the threaded sparse asks, K2 {threads_nsga['ranks']} from the "
-        f"NSGA-II workers); slicing and HSSP {hssp_counts}; NSGA-III {nsga3_counts}; MOTPE DTLZ2 {motpe3_counts})"
+        f"NSGA-II workers); slicing and HSSP {hssp_counts}; NSGA-III {nsga3_counts}; MOTPE DTLZ2 {motpe3_counts}; "
+        f"GP phases 25-28: K1 {gp_rest['matern52_gram']} = chain {chain['sparse']['k1']} + batch "
+        f"{chain['sparse']['k1_batch']}, running {running['sparse']['k1']}, constraints "
+        f"{constrained[4000]['k1']}, LogEHVI 0)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -2385,7 +2869,7 @@ def main() -> None:
     if hssp_counts["wfg_stack"] != HSSP_K or launches["wfg_stack"] != 2 + HSSP_K:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
-    paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts)
+    paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -2410,7 +2894,12 @@ def main() -> None:
         f"{threads_gp['thr_ask_s']:.3f} s an ask, NSGA-II n_jobs={RUNTIME_JOBS} {threads_nsga['ms']:.3f} ms/trial, "
         f"HSSP 512x5 k=16 {hssp[HSSP_M]['card_s']:.3f} s, NSGA-III {nsga3['ms']:.3f} ms/trial, MOTPE DTLZ2 "
         f"{motpe3['ms']:.3f} ms/trial through the device HSSP, CMA-ES config #3 {cma['ms']:.3f} ms/trial (CPU torch "
-        f"{cma['cpu_ms']:.3f}), total {time.perf_counter() - t_start:.1f} s"
+        f"{cma['cpu_ms']:.3f}), GP config #2 chain {chain['exact']['ms']:.1f} / {chain['sparse']['ms']:.1f} ms/trial "
+        f"at n={CHAIN_EXACT_FROM} / {CHAIN_SPARSE_FROM}, qLogEI n_jobs=2 {running[2]['s'] / running[2]['trials']:.3f} "
+        f"s/trial, qLogEI {running['exact']['s']:.3f} / {running['sparse']['s']:.3f} s/ask, constrained "
+        f"{float(np.median(constrained[1000]['s'])):.3f} / {float(np.median(constrained[4000]['s'])):.3f} s/ask, "
+        f"LogEHVI ZDT1 {float(np.median(mo_gp['ZDT1']['s'])):.3f} / DTLZ2 {float(np.median(mo_gp['DTLZ2']['s'])):.3f} "
+        f"s/ask, total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -4,7 +4,8 @@ The reference's ``GPParams``/``GPState`` hold JAX arrays; these helpers
 take anything ``numpy.asarray`` reads (JAX arrays included, without
 importing JAX here), by attribute or by mapping key, and build the port's
 tensors on ``device``. With them both packages can evaluate the posterior
-and LogEI of one fitted model, and :func:`scan_carry_from_numpy` starts the
+and every acquisition of one fitted model (:func:`acqf_data_from_numpy`,
+stacked states included), and :func:`scan_carry_from_numpy` starts the
 port's scan chunk programs from the reference's loop-top carry.
 """
 
@@ -44,6 +45,36 @@ def gp_state_from_numpy(state: Any, device: "str | torch.device | None" = None) 
         params=gp_params_from_numpy(_field(state, "params"), dev),
         **{f: _tensor(_field(state, f), dev) for f in GPState._fields if f != "params"},
     )
+
+
+#: Fields of the acquisition data that hold a (possibly stacked) GPState,
+#: a boolean mask, or the wrapped data of a constrained acquisition.
+_STATE_FIELDS = ("state", "states", "constraint_states")
+_MASK_FIELDS = ("cat_mask", "constraint_cat_mask")
+
+
+def acqf_data_from_numpy(data: Any, device: "str | torch.device | None" = None):
+    """The port's acquisition data (``LogEIData``, ``QLogEIData``,
+    ``LogPIData``, ``UCBData``, ``LogEHVIData`` with its stacked states,
+    ``ConstrainedData`` around any of them) from the reference's object of
+    the same class name: states through :func:`gp_state_from_numpy`,
+    masks as bool tensors, every other field a float32 tensor."""
+    from optuna_tpu_torch.gp import acqf
+
+    dev = resolve_device(device)
+    cls = getattr(acqf, type(data).__name__)
+    fields = {}
+    for f in cls._fields:
+        value = _field(data, f)
+        if f == "base":
+            fields[f] = acqf_data_from_numpy(value, dev)
+        elif f in _STATE_FIELDS:
+            fields[f] = gp_state_from_numpy(value, dev)
+        elif f in _MASK_FIELDS:
+            fields[f] = _tensor(value, dev, torch.bool)
+        else:
+            fields[f] = _tensor(value, dev)
+    return cls(**fields)
 
 
 def kernel_params_cache_from_numpy(exported: Mapping[str, Any]) -> dict[str, Any]:

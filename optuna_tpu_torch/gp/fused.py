@@ -1,6 +1,6 @@
 """The whole exact-GP suggestion as one function (PyTorch port of
-``optuna_tpu/gp/fused.py``: ``gp_suggest_fused`` and its parts; the q-chain
-waits).
+``optuna_tpu/gp/fused.py``): ``gp_suggest_fused`` and the q-chain
+``gp_suggest_chain_fused`` with their parts.
 
 Pipeline: MAP-fit kernel params (multi-start batched L-BFGS) → Cholesky /
 alpha finalize → LogEI over the Sobol candidate pool → Gumbel-top-k start
@@ -9,7 +9,8 @@ sweeps → argmax.
 
 The reference draws its Cranley-Patterson shift and its Gumbel noise from
 ``jax.random`` inside the program. PyTorch cannot reproduce those streams,
-so here they are explicit tensor arguments (``shift``, ``gumbel``): the
+so here they are explicit tensor arguments (``shift``, ``gumbel``; one row
+of each a round for the chain, the reference's ``fold_in(key, i)``): the
 sampler draws them from a ``torch.Generator``, and the tests hand in the
 reference's own draws to compare the two programs end to end.
 
@@ -30,6 +31,7 @@ from optuna_tpu_torch.gp.gp import (
     _kernel_with_noise,
     _loss,
     params_from_raw,
+    posterior,
 )
 from optuna_tpu_torch.ops.lbfgsb import lbfgsb
 from optuna_tpu_torch.samplers._resilience import ladder_cholesky_with_rung
@@ -39,7 +41,7 @@ def _finite_or_zero(g: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
 
 
-def _fit_params(starts, X, y, cat_mask, mask, minimum_noise, fit_iters):
+def _fit_params(starts, X, y, cat_mask, mask, minimum_noise, fit_iters, max_ls: int = 12):
     """Multi-start MAP fit of raw log kernel params; returns the winning raw
     vector, the decoded GPParams, and the L-BFGS iteration count."""
 
@@ -58,7 +60,7 @@ def _fit_params(starts, X, y, cat_mask, mask, minimum_noise, fit_iters):
     lower = torch.full((D,), -15.0, dtype=starts.dtype, device=starts.device)
     upper = torch.full((D,), 15.0, dtype=starts.dtype, device=starts.device)
     xs, fs, n_iter = lbfgsb(
-        value_and_grad, starts, lower, upper, max_iters=fit_iters, max_ls=12,
+        value_and_grad, starts, lower, upper, max_iters=fit_iters, max_ls=max_ls,
         value_fn=value_only, return_n_iter=True,
     )
     raw = xs[torch.argmin(fs)]
@@ -234,3 +236,78 @@ def gp_suggest_fused(
         "gp.best_acq": v_best,
     }
     return x_best, v_best, raw, stats
+
+
+def gp_suggest_chain_fused(
+    starts: torch.Tensor,  # (S, d+2)
+    X: torch.Tensor,  # (N, d) padded, with >= q free (masked-off) slots
+    y: torch.Tensor,  # (N,)
+    cat_mask: torch.Tensor,  # (d,) bool
+    mask: torch.Tensor,  # (N,)
+    n_real: int,  # index of the first free slot
+    sobol_base: torch.Tensor,  # (C, d)
+    incumbents: torch.Tensor,  # (I, d)
+    shifts: torch.Tensor,  # (q, d) per-round Cranley-Patterson shifts
+    gumbels: torch.Tensor,  # (q, I + C) per-round start-selection noise
+    minimum_noise: float,
+    cont_mask: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    n_choices: torch.Tensor,
+    steps: torch.Tensor,
+    dim_onehot: torch.Tensor,
+    choice_grid: torch.Tensor,
+    choice_valid: torch.Tensor,
+    stabilizing_noise: float = 1e-10,
+    q: int = 8,
+    n_local_search: int = 6,
+    n_cycles: int = 1,
+    lbfgs_iters: int = 20,
+    fit_iters: int = 30,
+    has_sweep: bool = False,
+):
+    """q joint proposals from one call via kriging-believer fantasies.
+
+    The kernel-param fit runs once for the whole chain; each round refactors
+    the (masked) extended history, maximizes LogEI, then writes the
+    posterior mean at the winner into slot ``n_real + i``. The reference
+    writes the slots with ``.at[slot].set`` inside ``lax.scan``; here they
+    are written into clones of the inputs, and ``n_real`` is a Python int, so no device
+    scalar is read to index. Returns ``(xs, vs, raw, stats)``."""
+    raw, params, fit_iters_used = _fit_params(
+        starts, X, y, cat_mask, mask, minimum_noise, fit_iters
+    )
+    noise_c = torch.tensor(stabilizing_noise, dtype=X.dtype, device=X.device)
+    Xc, yc, mc = X.clone(), y.clone(), mask.clone()
+    xs, vs, rungs, nfs = [], [], [], []
+    for i in range(q):
+        with torch.no_grad():
+            state, rung_i = _state_for(params, Xc, yc, cat_mask, mc)
+        best = torch.max(torch.where(mc > 0, yc, torch.full_like(yc, -float("inf"))))
+        data = LogEIData(state=state, cat_mask=cat_mask, best=best, stabilizing_noise=noise_c)
+        cand = device_candidates(sobol_base, shifts[i], cat_mask, n_choices, steps)
+        cand = torch.cat([incumbents, cand], dim=0)
+        x_i, v_i, nf_i = _maximize_logei(
+            data, cand, gumbels[i], cont_mask, lower, upper,
+            dim_onehot, choice_grid, choice_valid,
+            n_local_search=n_local_search, n_cycles=n_cycles,
+            lbfgs_iters=lbfgs_iters, has_sweep=has_sweep,
+        )
+        with torch.no_grad():
+            mean_i, _ = posterior(state, x_i[None], cat_mask)
+        slot = n_real + i  # round i's state is done with: write in place
+        Xc[slot] = x_i
+        yc[slot] = mean_i[0]
+        mc[slot] = 1.0
+        xs.append(x_i)
+        vs.append(v_i)
+        rungs.append(rung_i)
+        nfs.append(nf_i)
+    xs_t, vs_t = torch.stack(xs), torch.stack(vs)
+    stats = {
+        "gp.ladder_rung": max(rungs),
+        "gp.fit_iterations": fit_iters_used,
+        "gp.proposal_fallback_coords": torch.sum(torch.stack(nfs)).to(torch.int32),
+        "gp.best_acq": torch.max(vs_t),
+    }
+    return xs_t, vs_t, raw, stats

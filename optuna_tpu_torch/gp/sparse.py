@@ -1,6 +1,7 @@
 """Large-n GP engine: SGPR inducing-point posteriors above ``N_EXACT_MAX``
-(PyTorch port of ``optuna_tpu/gp/sparse.py``; the host
-``select_inducing_host`` and ``fit_gp_sparse`` wait with ``fit_gp``).
+(PyTorch port of ``optuna_tpu/gp/sparse.py``): the fused SGPR program and
+the host fit of the non-fused path (:func:`select_inducing_host`,
+:func:`fit_gp_sparse`).
 
 With inducing set ``Z`` (m rows), per-row noise precisions
 ``w_i = count_i / (noise + jitter)`` and cross-covariance ``C = K(Z, X)``:
@@ -20,6 +21,7 @@ the card; ``Kmm`` stays plain torch ops, as in the reference.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from optuna_tpu_torch.gp.acqf import LogEIData
@@ -46,6 +48,21 @@ SWAP_VAR_FRAC = 0.25
 
 def _pow2_bucket(n: int) -> int:
     return max(16, 1 << max(0, (n - 1)).bit_length())
+
+
+def select_inducing_host(X: np.ndarray, m: int) -> np.ndarray:
+    """Deterministic farthest-point (k-center) inducing subset on the host,
+    for the per-trial refit path, where the whole history is on the host
+    anyway. Returns the selected row indices (m,)."""
+    n = len(X)
+    m = min(m, n)
+    chosen = np.empty(m, dtype=np.int64)
+    chosen[0] = 0
+    d2 = np.sum((X - X[0]) ** 2, axis=1)
+    for i in range(1, m):
+        chosen[i] = int(np.argmax(d2))
+        d2 = np.minimum(d2, np.sum((X - X[chosen[i]]) ** 2, axis=1))
+    return chosen
 
 
 def _decoupled_gram(K: torch.Tensor, valid: torch.Tensor, diag_fill: float) -> torch.Tensor:
@@ -239,3 +256,70 @@ def gp_suggest_sparse_fused(
         "gp.sparsity_ratio": m_live.to(torch.float32) / torch.clamp(n_real, min=1).to(torch.float32),
     }
     return xs_t, vs_t, raw, stats
+
+
+def fit_gp_sparse(
+    X: np.ndarray,
+    y: np.ndarray,
+    is_categorical: np.ndarray,
+    warm_start_raw: np.ndarray | None = None,
+    minimum_noise: float | None = None,
+    n_restarts: int = 4,
+    seed: int = 0,
+    counts: np.ndarray | None = None,
+    n_inducing: int = N_INDUCING_MAX,
+    device: "str | torch.device | None" = None,
+) -> tuple[GPState, np.ndarray, dict]:
+    """Sparse twin of :func:`optuna_tpu_torch.gp.gp.fit_gp` for histories
+    above the exact threshold: the same return contract (a reduced m-point
+    GPState) plus the inducing stats. The inducing subset is the host
+    k-center selection; params fit on the subset, the posterior conditions
+    on the whole history through :func:`sgpr_reduce` (K1 once on the card).
+    """
+    from optuna_tpu_torch._device import resolve_device
+    from optuna_tpu_torch.gp.gp import (
+        _bucket,
+        _fit_kernel_params,
+        fit_gp,
+        kernel_param_starts,
+        padded,
+        upload,
+    )
+    from optuna_tpu_torch.gp.prior import DEFAULT_MINIMUM_NOISE_VAR
+
+    dev = resolve_device(device)
+    if minimum_noise is None:
+        minimum_noise = DEFAULT_MINIMUM_NOISE_VAR
+    n, d = X.shape
+    m = min(n_inducing, n)
+    if m >= n:  # degenerate call below the regime: exact is strictly better
+        return fit_gp(
+            X, y, is_categorical, warm_start_raw, minimum_noise,
+            n_restarts, seed, counts, n_exact_max=n, device=dev,  # force exact: no re-entry
+        )
+    sel = select_inducing_host(np.asarray(X, np.float32), m)
+    m_pad = _pow2_bucket(m)
+    N = _bucket(n)
+
+    Z, zy = upload(padded(X[sel], m_pad), dev), upload(padded(y[sel], m_pad), dev)
+    zmask = upload(padded(np.ones(m), m_pad), dev)
+    Xp, yp = upload(padded(np.asarray(X), N), dev), upload(padded(np.asarray(y), N), dev)
+    mask = upload(padded(np.ones(n) if counts is None else np.asarray(counts), N), dev)
+    starts = upload(kernel_param_starts(d, warm_start_raw, n_restarts, seed), dev)
+    cat_mask = upload(np.asarray(is_categorical), dev, torch.bool)
+    raw = _fit_kernel_params(starts, Z, zy, cat_mask, zmask, float(minimum_noise))
+    state, rung = _finalize_sparse(raw, Z, zy, zmask, Xp, yp, mask, cat_mask, float(minimum_noise))
+    stats = {"gp.ladder_rung": rung, "gp.inducing_count": m, "gp.sparsity_ratio": m / max(n, 1)}
+    return state, raw.detach().cpu().numpy(), stats
+
+
+def _finalize_sparse(raw, Z, zy, zmask, X, y, mask, cat_mask, minimum_noise: float):
+    """The reduced state at ``raw``. The reference's ``has_categorical`` only
+    steers its Pallas routing (categorical spaces take its XLA twin); the
+    port's K1 carries the Hamming term, so it runs on mixed spaces too."""
+    from optuna_tpu_torch.gp.gp import params_from_raw
+
+    with torch.no_grad():
+        params = params_from_raw(raw, Z.shape[-1], minimum_noise)
+        state, _Lmm, _L_B, _b, rung = sgpr_reduce(params, Z, zy, zmask, X, y, mask, cat_mask)
+    return state, rung

@@ -62,3 +62,10 @@ def logsumexp(a: torch.Tensor, dim: int) -> torch.Tensor:
     as ``jax.scipy.special.logsumexp`` does; TPE's padded mixture components
     carry ``-inf`` log weights."""
     return torch.logsumexp(a, dim=dim)
+
+
+def log_ndtr(z: torch.Tensor) -> torch.Tensor:
+    """``log Phi(z)``, stable in both tails and differentiable: the
+    reference takes ``jax.scipy.special.log_ndtr``; this is PyTorch's own
+    special function of the same name (no kernel of the repo)."""
+    return torch.special.log_ndtr(z)

@@ -21,6 +21,23 @@ def np64(t) -> np.ndarray:
     return np.asarray(t, dtype=np.float64)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module's torch work, restored after.
+
+    The port's CPU tests run many small ops (L-BFGS iterations on
+    16-128-row matrices). The driver runs six pytest workers on the
+    machine's cores, and torch's default of one intra-op thread a core
+    then puts several spinning threads on every core: a GP route file took
+    544 s in a full six-worker run and 28 s alone. One thread is faster
+    alone too (24 s) and changes no check: each test compares within one
+    process, at one thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device() -> torch.device:
     """The card, or a skip: decided when the test runs, never at import."""

@@ -136,6 +136,23 @@ def test_the_scan_modules_are_among_those_checked():
     assert set(SCAN_MODULES) <= set(_all_modules())
 
 
+GP_MODULES = [
+    "optuna_tpu_torch.gp.acqf",
+    "optuna_tpu_torch.gp.box_decomposition",
+    "optuna_tpu_torch.gp.convert",
+    "optuna_tpu_torch.gp.fused",
+    "optuna_tpu_torch.gp.gp",
+    "optuna_tpu_torch.gp.optim_mixed",
+    "optuna_tpu_torch.gp.sparse",
+    "optuna_tpu_torch.ops.special",
+    "optuna_tpu_torch.samplers._gp.sampler",
+]
+
+
+def test_the_gp_modules_are_among_those_checked():
+    assert set(GP_MODULES) <= set(_all_modules())
+
+
 @pytest.mark.parametrize("module", ["matern", "nds", "wfg"])
 def test_every_kernel_wrapper_counts_launches_and_names_its_source(module):
     import importlib

@@ -10,10 +10,8 @@ grid and has its own cases. GP starts fitting at trial 5 (the reference's
 matrix: 3) and samples with a small acquisition pool
 (``n_preliminary_samples=128``, ``n_local_search=2``), to keep the CPU time
 down: every case still runs GP asks, and the contract does not depend on
-the pool's size.
-
-Left out until they are ported: GP on several objectives (EHVI) and with
-constraints (both ROADMAP A2).
+the pool's size. GP runs on several objectives (LogEHVI) and with
+constraints, as in the reference's matrix.
 """
 
 from __future__ import annotations
@@ -42,6 +40,9 @@ from optuna_tpu_torch.testing.pytest_samplers import (
     RelativeSamplerTestCase,
     SeededSamplerTestCase,
 )
+from tests._torch_port import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 optuna_tpu_torch.logging.set_verbosity(optuna_tpu_torch.logging.WARNING)
 optuna_tpu.logging.set_verbosity(optuna_tpu.logging.WARNING)
@@ -73,11 +74,12 @@ SAMPLER_FACTORIES = {
 # BruteForce only handles enumerable spaces; Grid needs an explicit grid —
 # they get their own cases instead of the generic continuous-space matrix.
 CONTINUOUS_CAPABLE = [k for k in SAMPLER_FACTORIES if k != "bruteforce"]
-MULTI_OBJECTIVE_CAPABLE = ["random", "tpe", "tpe-mv", "nsga2", "nsga3", "qmc"]
+MULTI_OBJECTIVE_CAPABLE = ["random", "tpe", "tpe-mv", "gp", "nsga2", "nsga3", "qmc"]
 SEEDED_REPRODUCIBLE = ["random", "tpe", "tpe-mv", "gp", "cmaes", "qmc", "nsga2", "nsga3", "partial-fixed"]
 RELATIVE_CAPABLE = ["tpe-mv", "gp", "cmaes"]
 CONSTRAINED_CAPABLE = {
     "tpe-c": lambda cfn: TPESampler(seed=0, n_startup_trials=3, constraints_func=cfn, device=CPU),
+    "gp-c": lambda cfn: GPSampler(seed=0, n_startup_trials=3, constraints_func=cfn, device=CPU, **GP_POOL),
     "nsga2-c": lambda cfn: NSGAIISampler(seed=0, population_size=4, constraints_func=cfn, device=CPU),
     "nsga3-c": lambda cfn: NSGAIIISampler(seed=0, population_size=4, constraints_func=cfn, device=CPU),
 }

@@ -46,6 +46,9 @@ from optuna_tpu_torch.models.benchmarks import hartmann6_torch
 from optuna_tpu_torch.parallel import VectorizedObjective, optimize_scan
 from optuna_tpu_torch.samplers import RandomSampler
 from optuna_tpu_torch.trial import TrialState, create_trial
+from tests._torch_port import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ot.logging.set_verbosity(ot.logging.ERROR)
 

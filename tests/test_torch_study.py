@@ -146,8 +146,10 @@ def test_gp_sampler_refuses_what_this_slice_does_not_carry():
         directions=["minimize", "minimize"],
     )
     study.optimize(lambda t: (t.suggest_float("x", 0, 1), 1.0), n_trials=1)
-    with pytest.raises(NotImplementedError, match="single-objective"):
-        study.optimize(lambda t: (t.suggest_float("x", 0, 1), 1.0), n_trials=1)
+    # Several objectives are carried since ROADMAP A2 (LogEHVI): the ask that
+    # used to raise completes.
+    study.optimize(lambda t: (t.suggest_float("x", 0, 1), 1.0), n_trials=1)
+    assert study.trials[-1].state.name == "COMPLETE"
     # n_jobs threads are carried since ROADMAP A1 (the runtime) was ported.
     study.optimize(lambda t: (1.0, 1.0), n_trials=2, n_jobs=2)
     assert [t.state.name for t in study.trials[-2:]] == ["COMPLETE", "COMPLETE"]
