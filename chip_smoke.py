@@ -2287,7 +2287,7 @@ def phase_cmaes(gpu: str) -> dict:
 CHAIN_Q = 8  # bench.py's config #2: GPSampler(seed=0, speculative_chain=8)
 CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS = 960, 32  # 4 dispatches at n = 960 ... 984, all at bucket 1024
 CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS = 4000, 16  # 2 sparse dispatches, K1 once each
-RUNNING_TRIALS = {2: 3, 4: 5}  # n_jobs -> trials from 1000 seeded ones
+RUNNING_TRIALS = {2: 8, 4: 12}  # n_jobs -> trials from 1000 seeded ones: several qLogEI asks a setting
 GP_CARD_CPU_TOL = 1e-3  # the first host-route ask on the card against the CPU, normalized space
 GP_TIE = 1e-3  # ... a parting is allowed only where the two winners' acquisition values are this close
 ZDT_GP_FROM, DTLZ_GP_FROM = 300, 200
@@ -2352,10 +2352,14 @@ def distinct_and_seen(study, rows) -> tuple[int, int]:
 def check_batch(label: str, study, proposals: list) -> tuple[int, int]:
     """A batch of ``CHAIN_Q`` finite points in the box that the fantasies
     pushed apart (the reference's own test: not all one point). The chain
-    can return an observed point: where every pool candidate's LogEI
-    underflows below an incumbent's, the ascent starts at the incumbent,
-    where the Matérn gradient is 0, and stays (the reference does the same
-    on the same history); the distinct and repeated counts are printed."""
+    can return an observed point: where the pool's best LogEI is far below
+    an incumbent's, a round's best start is that incumbent, where the LogEI
+    gradient is in the hundreds; the maximizer's shortest trial step (2^-9
+    of it) overshoots the narrow rise around the observed point, no step is
+    accepted, and the round returns the incumbent. The reference's program
+    does the same on this history's second dispatch
+    (``tests/torch_chain_witness.py``). The distinct and repeated counts
+    are printed."""
     pts = np.array([[p[f"x{i}"] for i in range(20)] for p in proposals])
     if pts.shape != (CHAIN_Q, 20) or not np.all(np.isfinite(pts) & (pts >= 0.0) & (pts <= 1.0)):
         fail(f"{label}: sample_relative_batch gave {pts.shape}, expected {CHAIN_Q} points in the box")
@@ -2379,33 +2383,38 @@ def phase_chain(k1_count, exact_ask_s: list[float], sparse_ask_s: list[float]) -
 
     out = {}
     spy = _Spy(fused, "gp_suggest_chain_fused", lambda a, kw, o: (a[1].shape[0], a[5]))
+    exact_dispatches = None
     try:
         for label, n0, n_trials in (
             ("exact", CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS), ("sparse", CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS),
         ):
             study = seeded_study(n0, speculative_chain=CHAIN_Q)
             n0 = len(study.get_trials(deepcopy=False))
-            dispatches = _Spy(type(study.sampler), "_sample_chain")
-            before = k1_count()
-            t0 = time.perf_counter()
+            # Each dispatch's trial count and the distinct design rows among them.
+            dispatches = _Spy(type(study.sampler), "_sample_chain",
+                              lambda a, kw, o: (len(a[4]), len(np.unique(a[3], axis=0))))
             try:
+                before = k1_count()
+                t0 = time.perf_counter()
                 study.optimize(hartmann20, n_trials=n_trials)
                 torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                k1 = k1_count() - before
+                check_gp_trials(f"chain {label}", study, n0, n_trials)
+                trials = study.get_trials(deepcopy=False)
+                chain_distinct = len({tuple(t.params.values()) for t in trials[n0:]})
+                if len(dispatches.calls) != n_trials // CHAIN_Q:
+                    fail(f"chain {label}: {len(dispatches.calls)} chain dispatches for {n_trials} trials")
+                before = k1_count()
+                t1 = time.perf_counter()
+                batch = study.sampler.sample_relative_batch(study, hartmann_space(), CHAIN_Q)
+                torch.cuda.synchronize()
+                batch_s = time.perf_counter() - t1
+                k1_batch = k1_count() - before
             finally:
                 dispatches.close()
-            seconds = time.perf_counter() - t0
-            k1 = k1_count() - before
-            check_gp_trials(f"chain {label}", study, n0, n_trials)
-            trials = study.get_trials(deepcopy=False)
-            chain_distinct = len({tuple(t.params.values()) for t in trials[n0:]})
-            if len(dispatches.calls) != n_trials // CHAIN_Q:
-                fail(f"chain {label}: {len(dispatches.calls)} chain dispatches for {n_trials} trials")
-            before = k1_count()
-            t1 = time.perf_counter()
-            batch = study.sampler.sample_relative_batch(study, hartmann_space(), CHAIN_Q)
-            torch.cuda.synchronize()
-            batch_s = time.perf_counter() - t1
-            k1_batch = k1_count() - before
+            if label == "exact":
+                exact_dispatches = dispatches.calls
             distinct, repeated = check_batch(f"chain {label}", study, batch)
             out[label] = {"ms": seconds / n_trials * 1e3, "k1": k1, "k1_batch": k1_batch, "batch_s": batch_s,
                           "best": study.best_value, "trials_distinct": chain_distinct, "batch": (distinct, repeated)}
@@ -2413,16 +2422,18 @@ def phase_chain(k1_count, exact_ask_s: list[float], sparse_ask_s: list[float]) -
         spy.close()
     from optuna_tpu_torch.gp.gp import _bucket
 
-    # A dispatch's n counts distinct rows: a trial that repeats another's
-    # params (see check_batch) collapses into that row's count.
+    # One dispatch every CHAIN_Q trials, then the batch. A dispatch's n is
+    # the count of distinct design rows among its trials: a trial that
+    # repeats another's params (see check_batch) collapses into that row.
     ns = list(range(CHAIN_EXACT_FROM, CHAIN_EXACT_FROM + CHAIN_EXACT_TRIALS + 1, CHAIN_Q))  # the last: the batch
-    rows = [n for _, n in spy.calls]
     if (
-        len(spy.calls) != len(ns) or rows[0] != ns[0] or any(r > n for r, n in zip(rows, ns))
+        len(spy.calls) != len(ns) or [t for t, _ in exact_dispatches] != ns
+        or [r for _, r in spy.calls] != [r for _, r in exact_dispatches]
         or any(b != _bucket(r + CHAIN_Q) or b != _bucket(ns[-1] + CHAIN_Q) for b, r in spy.calls)
     ):
-        fail(f"chain exact: dispatches (bucket, n) {spy.calls} at {ns} trials, expected one bucket "
-             f"{_bucket(ns[-1] + CHAIN_Q)} holding n + {CHAIN_Q}")
+        fail(f"chain exact: dispatches (bucket, n) {spy.calls} at (trials, distinct rows) {exact_dispatches}, "
+             f"expected n the distinct rows, at {ns} trials, in one bucket {_bucket(ns[-1] + CHAIN_Q)} holding "
+             f"n + {CHAIN_Q}")
     expected = spy.calls[:-1]
     if out["exact"]["k1"] or out["exact"]["k1_batch"]:
         fail(f"chain exact: K1 launched {out['exact']['k1']} / {out['exact']['k1_batch']} times below n_exact_max")
@@ -2497,6 +2508,8 @@ def phase_running(k1_count) -> dict:
     then trials at n_jobs 2 and 4; then 2 sequential asks beside a RUNNING
     trial from 1000 (the exact host fit) and from 4000 (the sparse host
     fit, K1 once an ask)."""
+    import threading
+
     import torch
 
     from optuna_tpu_torch.models.benchmarks import hartmann20
@@ -2504,11 +2517,27 @@ def phase_running(k1_count) -> dict:
 
     out = {}
     objective, restore = _ask_in_flight()
+    # Each ask's own time, and whether it went through qLogEI (the spy on
+    # _build_qlogei marks the asking thread).
+    local, lock, asks = threading.local(), threading.Lock(), []
+    real_impl = GPSampler._sample_relative_impl
+
+    def timed_impl(self, *args, **kwargs):
+        local.qlogei = False
+        t = time.perf_counter()
+        try:
+            return real_impl(self, *args, **kwargs)
+        finally:
+            with lock:
+                asks.append((time.perf_counter() - t, local.qlogei))
+
+    GPSampler._sample_relative_impl = timed_impl
     try:
         for jobs, n_trials in RUNNING_TRIALS.items():
             study = seeded_study(1000)
             n0 = len(study.get_trials(deepcopy=False))
-            qlogei = _Spy(GPSampler, "_build_qlogei")
+            qlogei = _Spy(GPSampler, "_build_qlogei", lambda a, kw, o: setattr(local, "qlogei", True))
+            asks.clear()
             before = k1_count()
             t0 = time.perf_counter()
             try:
@@ -2523,8 +2552,12 @@ def phase_running(k1_count) -> dict:
                      f"{n_trials - jobs}")
             if k1_count() != before:
                 fail(f"running n_jobs={jobs}: K1 launched below n_exact_max")
-            out[jobs] = {"s": seconds, "qlogei": len(qlogei.calls), "trials": n_trials}
+            q_s = [s for s, took in asks if took]
+            other_s = [s for s, took in asks if not took]
+            out[jobs] = {"s": seconds, "qlogei": len(qlogei.calls), "trials": n_trials,
+                         "qlogei_ask_s": float(np.median(q_s)), "other_ask_s": other_s}
     finally:
+        GPSampler._sample_relative_impl = real_impl
         restore()
     for label, n_seeded, k1_each in (("exact", 1000, 0), ("sparse", 4000, 1)):
         study = seeded_study(n_seeded)
@@ -2548,7 +2581,9 @@ def phase_running(k1_count) -> dict:
     print(
         "running trials (qLogEI, Hartmann-20D, from 1000; objective 0.2 s then held while an ask is in flight): "
         + "; ".join(f"n_jobs={j} {out[j]['trials']} trials in {out[j]['s']:.2f} s, {out[j]['qlogei']} asks through "
-                    "qLogEI" for j in RUNNING_TRIALS)
+                    f"qLogEI at {out[j]['qlogei_ask_s']:.3f} s an ask (median), the others (the workers' first, "
+                    f"the fused route) {', '.join(f'{s:.3f}' for s in out[j]['other_ask_s'])} s"
+                    for j in RUNNING_TRIALS)
         + f"; 2 sequential asks beside one RUNNING trial: {out['exact']['s']:.3f} s an ask from 1000, "
         f"{out['sparse']['s']:.3f} s from 4000 (K1 {out['sparse']['k1']} over the 2); all COMPLETE"
     )
@@ -2896,7 +2931,7 @@ def main() -> None:
         f"{motpe3['ms']:.3f} ms/trial through the device HSSP, CMA-ES config #3 {cma['ms']:.3f} ms/trial (CPU torch "
         f"{cma['cpu_ms']:.3f}), GP config #2 chain {chain['exact']['ms']:.1f} / {chain['sparse']['ms']:.1f} ms/trial "
         f"at n={CHAIN_EXACT_FROM} / {CHAIN_SPARSE_FROM}, qLogEI n_jobs=2 {running[2]['s'] / running[2]['trials']:.3f} "
-        f"s/trial, qLogEI {running['exact']['s']:.3f} / {running['sparse']['s']:.3f} s/ask, constrained "
+        f"s/trial ({running[2]['qlogei_ask_s']:.3f} s a qLogEI ask), qLogEI {running['exact']['s']:.3f} / {running['sparse']['s']:.3f} s/ask, constrained "
         f"{float(np.median(constrained[1000]['s'])):.3f} / {float(np.median(constrained[4000]['s'])):.3f} s/ask, "
         f"LogEHVI ZDT1 {float(np.median(mo_gp['ZDT1']['s'])):.3f} / DTLZ2 {float(np.median(mo_gp['DTLZ2']['s'])):.3f} "
         f"s/ask, total {time.perf_counter() - t_start:.1f} s"

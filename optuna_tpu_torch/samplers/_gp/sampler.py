@@ -97,9 +97,8 @@ class GPSampler(BaseSampler):
         self._spec_sig: tuple | None = None
         self._spec_expected_n = -1
         self._spec_lock = threading.Lock()
-        # Kept for the reference's signature: eager PyTorch has no
-        # ahead-of-time compile to hand off, so the knob has no effect.
-        self._precompile_ahead = precompile_ahead
+        # ``precompile_ahead`` is accepted for the reference's signature and
+        # not stored: eager PyTorch has no ahead-of-time compile to hand off.
         # Large-n switch: histories past `n_exact_max` (default
         # gp.sparse.N_EXACT_MAX) take the SGPR engine with up to
         # `n_inducing` inducing points. None defers to the module defaults

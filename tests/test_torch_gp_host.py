@@ -118,3 +118,27 @@ def test_fit_gp_sparse_fall_back_is_the_exact_fit():
     exact = port_gp.fit_gp(X, y, is_cat, seed=4, device=CPU)
     np.testing.assert_array_equal(via_sparse[1], exact[1])
     assert via_sparse[0].X.shape == exact[0].X.shape == (16, D)
+
+
+@pytest.mark.parametrize("knobs", [(None, None), (64, 16), (500, 200)])
+def test_autopilot_densify_turns_the_knobs_as_the_reference(knobs):
+    """Each call doubles the inducing capacity up to the cap (256), then
+    raises the exact threshold out of reach; each undo restores the knobs
+    it found. Five calls and their undos, in reverse, on both samplers."""
+    from optuna_tpu.samplers import GPSampler as RefGPSampler
+    from optuna_tpu_torch.samplers import GPSampler
+
+    n_exact_max, n_inducing = knobs
+    ref = RefGPSampler(seed=0, n_exact_max=n_exact_max, n_inducing=n_inducing)
+    port = GPSampler(seed=0, n_exact_max=n_exact_max, n_inducing=n_inducing, device=CPU)
+    undos, seen = [], []
+    for _ in range(5):
+        undos.append((ref.autopilot_densify(), port.autopilot_densify()))
+        assert port._sparse_limits() == ref._sparse_limits()
+        seen.append(port._sparse_limits())
+    for ref_undo, port_undo in reversed(undos):
+        ref_undo()
+        port_undo()
+        assert port._sparse_limits() == ref._sparse_limits()
+    assert (port._n_exact_max, port._n_inducing) == knobs
+    assert seen[-1][0] == 10**9 and seen[-2][1] == 256
