@@ -135,10 +135,39 @@ Phases (any failure exits non-zero and prints no result line):
     same 64 seeded trials and seed: proposals within 1e-3 (normalized), or
     a near tie of LogEHVI.
 
+29. BASELINE config #5 as ``bench.py::run_ours_mlp_vectorized`` runs it:
+    ``bench.py::_mlp_problem``'s data and weights (``RandomState(0)``, 256
+    x 784 inputs, 10 classes, hidden 32), a batched objective of 10 SGD
+    steps from ``base * init_scale`` at rate ``lr`` (``models.mlp.
+    train_scaled_batch``), ``TPESampler(seed=0, multivariate=True,
+    constant_liar=True, n_startup_trials=10)``, batches of 256 through
+    ``optimize_vectorized``: 256 warm-up trials, then 2048 timed, twice
+    (identical trial for trial). Trials/s (host clock), one warm batch's
+    device time (CUDA events) and GFLOP/s by ``bench.py:1157-1174``'s count,
+    the device's busy share over two more traced batches, the best value;
+    every trial COMPLETE inside its distributions; the executor's one
+    synchronizing call a batch; the last batch on the card against CPU
+    torch in float64, within 1e-3 (relative) plus twice CPU float32's own
+    error, trial by trial.
+30. The executor's containment on the card around config #5's objective
+    (``RandomSampler``, batches of 64): NaN at three positions under
+    ``non_finite`` ``fail``, ``raise`` and ``clip``; a persistent poison
+    trial (it FAILs alone, the other 63 COMPLETE); a real
+    ``torch.OutOfMemoryError`` of the card at 32 trials a dispatch (each
+    trial asks for 0.6 / 16 of the free memory), which must halve until it
+    fits and regrow after two clean batches, with the
+    fault kit's stand-in's ``dispatch_widths`` on the same schedule; a hung
+    dispatch under a 1 s deadline, salvaged by bisection. No case leaves a
+    trial RUNNING.
+31. GPSampler on Hartmann-20D (``hartmann20_torch``) from 4000 seeded
+    trials, two batches of 8 through ``optimize_vectorized``: K1 exactly once
+    a batch (one sparse ``sample_relative_batch``), every trial COMPLETE.
+
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28) and read just after it;
-every kernel must have launched on its path, the single-objective TPE and
-CMA-ES phases none, K3 exactly twice on phase 7 and 16 times on phase 21,
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31) and read
+just after it; every kernel must have launched on its path, the
+single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
+phase 7 and 16 times on phase 21, K1 exactly twice on phase 31,
 and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
@@ -2757,6 +2786,346 @@ def phase_mo_gp(k1_count) -> dict:
     return out
 
 
+# ------------------------------------------- phases 29-31: batched trial execution
+
+MLP_BATCH, MLP_WARMUP, MLP_TIMED = 256, 256, 2048  # bench.py --config mlp: batch 256, 256 warm-up, 2048 timed
+MLP_STEPS = 10  # bench.py's _MLP_SGD_STEPS
+MLP_PROFILED = 2  # batches traced after the timed window, for the device's busy share
+# One batch of 256 on the card against CPU torch in float64, trial by trial:
+# |card - f64| <= MLP_F64_RTOL * |f64| + 2 * |cpu32 - f64|. Ten SGD steps at a
+# rate near 1 amplify float32 rounding: on "NVIDIA H100 80GB HBM3, 700.00 W" the last batch's worst
+# trial (lr 0.79, scale 2.79) was 1.24e-2 from float64 in CPU float32 and
+# 2.5e-4 on the card, random draws 4.6e-4 and 5.0e-4 (PERF.md, config #5). The
+# card may stray as far as CPU float32 does, twice over, plus 1e-3.
+MLP_F64_RTOL = 1e-3
+FAULT_BATCH, FAULT_TRIALS = 64, 128
+NAN_SLOTS = (3, 17, 40)  # phase 30: NaN in the first dispatch at these batch positions
+OOM_WIDTH = 16  # phase 30: a trial asks for 0.6 / 16 of the free memory, so 16 fit and 32 do not
+HANG_S, DEADLINE_S = 3.0, 1.0  # phase 30: the hung dispatch and the executor's deadline
+GP_BATCH, GP_BATCHES, GP_BATCH_FROM = 8, 2, 4000  # phase 31: two batches of 8 from 4000 seeded trials
+
+
+def mlp_space() -> dict:
+    from optuna_tpu_torch.distributions import FloatDistribution
+
+    return {"lr": FloatDistribution(1e-3, 1.0, log=True), "init_scale": FloatDistribution(0.3, 3.0)}
+
+
+def mlp_objective_fn(device, dtype=None):
+    """Config #5's batched objective on ``device``: ``bench.py::_mlp_problem``'s
+    data and initial weights (``RandomState(0)``: 256 examples of 784
+    inputs, 10 classes, hidden width 32); trial ``i`` trains ``base *
+    init_scale[i]`` for 10 SGD steps at rate ``lr[i]`` and returns the final
+    loss. ``dtype=torch.float64`` gives the oracle of the float32 program."""
+    import torch
+
+    from optuna_tpu_torch.models.mlp import MLPParams, mlp_params_from_numpy, train_scaled_batch
+
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(256, 784)).astype(np.float32)
+    y = rng.randint(0, 10, 256).astype(np.int32)
+    init = {
+        "w1": rng.normal(0, 0.1, (784, 32)).astype(np.float32),
+        "b1": np.zeros(32, np.float32),
+        "w2": rng.normal(0, 0.1, (32, 10)).astype(np.float32),
+        "b2": np.zeros(10, np.float32),
+    }
+    dtype = dtype or torch.float32
+    base = MLPParams(*(p.to(dtype) for p in mlp_params_from_numpy(init, device)))
+    tx, ty = torch.from_numpy(x).to(device, dtype), torch.from_numpy(y).to(device)
+
+    def fn(params):
+        return train_scaled_batch(base, tx, ty, params["lr"], params["init_scale"], MLP_STEPS)
+
+    return fn
+
+
+def mlp_flops_per_trial() -> int:
+    """``bench.py:1157-1160``'s count: a forward pass is 256 x (784 x 32 + 32 x
+    10) multiply-adds, a value-and-grad step three forwards, and the final
+    loss one more."""
+    macs = 256 * (784 * 32 + 32 * 10)
+    return 2 * macs * (3 * MLP_STEPS + 1)
+
+
+def check_all_complete(label: str, study, n: int) -> None:
+    import optuna_tpu_torch as ot
+
+    trials = study.get_trials(deepcopy=False)
+    done = [t for t in trials if t.state == ot.TrialState.COMPLETE]
+    if len(trials) != n or len(done) != n:
+        fail(f"{label}: {len(done)} of {len(trials)} trials COMPLETE, expected {n}")
+    if not all(in_distributions(t) and all(math.isfinite(v) for v in t.values) for t in done):
+        fail(f"{label}: a trial is non-finite or outside its distributions")
+
+
+def phase_mlp(gpu: str) -> dict:
+    """BASELINE config #5 as ``bench.py::run_ours_mlp_vectorized`` runs it:
+    ``TPESampler(seed=0, multivariate=True, constant_liar=True,
+    n_startup_trials=10)``, batches of 256 through ``optimize_vectorized``,
+    256 warm-up trials and 2048 timed, twice on the card with one seed."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import telemetry
+    from optuna_tpu_torch.parallel import VectorizedObjective, optimize_vectorized
+    from optuna_tpu_torch.samplers import TPESampler
+
+    device = torch.device("cuda", 0)
+    fn = mlp_objective_fn(device)
+    runs = []
+    for _ in range(2):
+        study = ot.create_study(
+            sampler=TPESampler(seed=0, multivariate=True, constant_liar=True, n_startup_trials=10)
+        )
+        objective = VectorizedObjective(fn, mlp_space())
+        t0 = time.perf_counter()
+        optimize_vectorized(study, objective, MLP_WARMUP, batch_size=MLP_BATCH)
+        warm_s = time.perf_counter() - t0
+        registry = telemetry.MetricsRegistry()
+        telemetry.enable(registry)
+        try:
+            t1 = time.perf_counter()
+            optimize_vectorized(study, objective, MLP_TIMED, batch_size=MLP_BATCH)
+            timed_s = time.perf_counter() - t1  # every batch's tells read its values: the card has finished
+        finally:
+            telemetry.disable()
+        phases = telemetry.phase_totals(registry.snapshot())
+        runs.append({"study": study, "objective": objective, "warm_s": warm_s, "timed_s": timed_s, "phases": phases})
+    study = runs[0]["study"]
+    check_all_complete("config #5", study, MLP_WARMUP + MLP_TIMED)
+    if trial_rows(study) != trial_rows(runs[1]["study"]):
+        fail("config #5: two seeded runs on the card differ")
+
+    # One warm batch's device time and the card against CPU torch, on the
+    # last batch's params.
+    last = study.get_trials(deepcopy=False)[-MLP_BATCH:]
+    packed = {k: np.asarray([d.to_internal_repr(t.params[k]) for t in last], np.float32) for k, d in mlp_space().items()}
+    args = {k: torch.from_numpy(v).to(device) for k, v in packed.items()}
+    batch_ms = cuda_ms(lambda: fn(args), reps=20)
+    card = fn(args).cpu().numpy().astype(np.float64)
+    host = {k: torch.from_numpy(v) for k, v in packed.items()}
+    cpu32 = mlp_objective_fn(torch.device("cpu"))(host).numpy().astype(np.float64)
+    cpu64 = mlp_objective_fn(torch.device("cpu"), torch.float64)(host).numpy()
+    told = np.array([t.value for t in last], dtype=np.float64)
+    allowed = MLP_F64_RTOL * np.abs(cpu64) + 2.0 * np.abs(cpu32 - cpu64)
+    rel = lambda a: float(np.max(np.abs(a - cpu64) / np.abs(cpu64)))  # noqa: E731
+    if not (np.isfinite(card).all() and np.all(np.abs(card - cpu64) <= allowed)):
+        worst = int(np.argmax(np.abs(card - cpu64) - allowed))
+        fail(f"config #5: trial {last[worst].number} of the last batch is {card[worst]} on the card, {cpu32[worst]} in "
+             f"CPU float32, {cpu64[worst]} in CPU float64: beyond {MLP_F64_RTOL} of float64 plus twice CPU float32's "
+             "error")
+    told_diff = float(np.max(np.abs(card - told)))
+
+    # Synchronizing calls of one more batch of the twin, by line: the
+    # executor's must be the dispatch's one read.
+    twin, twin_objective = runs[1]["study"], runs[1]["objective"]
+    sites = sync_sites(lambda: optimize_vectorized(twin, twin_objective, MLP_BATCH, batch_size=MLP_BATCH))
+    in_executor = sum(v for k, v in sites.items() if k.startswith("optuna_tpu_torch/parallel/executor.py"))
+    if in_executor != 1:
+        fail(f"config #5: a batch made {in_executor} synchronizing calls in the executor, expected its one read: {sites}")
+    # The device's busy share, from a trace of a few more batches of the twin.
+    wall_ms, busy_ms, kernels, dtoh, syncs = profiled(
+        "config 5 batches",
+        lambda: optimize_vectorized(twin, twin_objective, MLP_PROFILED * MLP_BATCH, batch_size=MLP_BATCH),
+    )
+    n_batches = MLP_TIMED // MLP_BATCH
+    flops_batch = mlp_flops_per_trial() * MLP_BATCH
+    out = {
+        "trials_per_s": [MLP_TIMED / r["timed_s"] for r in runs],
+        "batch_ms": batch_ms,
+        "gflops": flops_batch / (batch_ms * 1e-3) / 1e9,
+        "duty": batch_ms * 1e-3 * n_batches / runs[0]["timed_s"],
+        "busy": busy_ms / wall_ms,
+        "best": study.best_value,
+    }
+    per_batch = " / ".join(
+        ", ".join(f"{k} {v['total_s'] / v['count'] * 1e3:.2f} ms" for k, v in r["phases"].items()) for r in runs
+    )
+    print(
+        f"phase 29, config #5 (256-way MLP, TPESampler(seed=0, multivariate, constant_liar, n_startup_trials=10), "
+        f"batches of {MLP_BATCH}; {gpu}): {MLP_WARMUP} warm-up trials in {runs[0]['warm_s']:.3f} / "
+        f"{runs[1]['warm_s']:.3f} s, then {MLP_TIMED} timed: {out['trials_per_s'][0]:.1f} / "
+        f"{out['trials_per_s'][1]:.1f} trials/s (host clock, two seeded runs, identical trial for trial); per batch "
+        f"{per_batch} ({n_batches} batches); one warm batch {batch_ms:.4f} ms on the device (CUDA events, {MLP_BATCH} trials "
+        f"x 10 SGD steps, {flops_batch / 1e9:.2f} GFLOP): {out['gflops']:.1f} GFLOP/s; duty cycle {out['duty']:.4f} "
+        f"(that batch time x {n_batches} over the timed window, bench.py's estimate); device busy {out['busy']:.4f} "
+        f"over {MLP_PROFILED} traced batches ({kernels} kernels, {dtoh} device-to-host copies, {syncs} stream syncs); "
+        f"synchronizing calls of one batch by line {sites}; "
+        f"the last batch against CPU float64: card {rel(card):.3e}, CPU float32 {rel(cpu32):.3e} (relative, worst "
+        f"trial; allowed {MLP_F64_RTOL} plus twice CPU float32's error), the told values against the card's "
+        f"recompute {told_diff:.3e}; best {out['best']:.6f}"
+    )
+    return out
+
+
+def states_of(study) -> dict:
+    counts: dict = {}
+    for t in study.get_trials(deepcopy=False):
+        counts[t.state.name] = counts.get(t.state.name, 0) + 1
+    return counts
+
+
+def phase_containment() -> dict:
+    """The executor's containment on the card, around config #5's objective,
+    ``RandomSampler`` studies: NaN under each ``non_finite`` policy, a
+    persistent poison trial, a real out-of-memory error of the card, and a
+    hung dispatch under a deadline. No case may leave a trial RUNNING."""
+    import torch
+
+    import optuna_tpu_torch as ot
+
+    fn = mlp_objective_fn(torch.device("cuda", 0))
+    space = mlp_space()
+    out: dict = {}
+    verbosity = ot.logging.get_verbosity()
+    ot.logging.set_verbosity(ot.logging.ERROR)  # each contained fault logs a warning
+    try:
+        _containment_cases(fn, space, out)
+    finally:
+        ot.logging.set_verbosity(verbosity)
+    return out
+
+
+def _containment_cases(fn, space: dict, out: dict) -> None:
+    import threading
+
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.parallel import NonFiniteObjectiveError, VectorizedObjective, optimize_vectorized
+    from optuna_tpu_torch.samplers import RandomSampler
+    from optuna_tpu_torch.storages import RetryPolicy
+    from optuna_tpu_torch.testing.fault_injection import FaultyVectorizedObjective
+
+    def study(seed: int):
+        return ot.create_study(sampler=RandomSampler(seed=seed))
+
+    def run(label: str, st, objective, n: int, **kwargs) -> dict:
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            optimize_vectorized(st, objective, n, batch_size=FAULT_BATCH,
+                                retry_policy=RetryPolicy(max_attempts=5, sleep=lambda _s: None), **kwargs)
+        except NonFiniteObjectiveError as err:
+            raised = err
+        counts = states_of(st)
+        if counts.get("RUNNING"):
+            fail(f"containment {label}: {counts['RUNNING']} trials left RUNNING")
+        widths = getattr(objective, "dispatch_widths", None)
+        out[label] = {"states": counts, "widths": widths, "s": time.perf_counter() - t0, "raised": raised}
+        return out[label]
+
+    def failed(st) -> list[int]:
+        return [t.number for t in st.get_trials(deepcopy=False) if t.state == ot.TrialState.FAIL]
+
+    for policy in ("fail", "raise", "clip"):
+        st = study(0)
+        r = run(f"nan/{policy}", st, FaultyVectorizedObjective(fn, space, nan_at={0: NAN_SLOTS}), FAULT_TRIALS,
+                non_finite=policy)
+        if policy == "fail" and (failed(st) != list(NAN_SLOTS) or r["states"]["COMPLETE"] != FAULT_TRIALS - 3):
+            fail(f"containment nan/fail: FAIL {failed(st)}, states {r['states']}")
+        if policy == "raise" and (r["raised"] is None or failed(st) != list(NAN_SLOTS)
+                                  or r["states"]["COMPLETE"] != FAULT_BATCH - 3):
+            fail(f"containment nan/raise: raised {r['raised']!r}, FAIL {failed(st)}, states {r['states']}")
+        if policy == "clip":
+            values = [t.value for t in st.get_trials(deepcopy=False)]
+            if r["states"] != {"COMPLETE": FAULT_TRIALS} or any(values[i] != 0.0 for i in NAN_SLOTS):
+                fail(f"containment nan/clip: states {r['states']}, poisoned values {[values[i] for i in NAN_SLOTS]}")
+
+    # A persistent poison: the enqueued trial's rate crashes every dispatch that holds it.
+    st = study(1)
+    st.enqueue_trial({"lr": 0.999, "init_scale": 1.0})
+    poison = FaultyVectorizedObjective(fn, space, raise_when=lambda host: bool((host["lr"] > 0.99).any()))
+    r = run("poison", st, poison, FAULT_BATCH)
+    if failed(st) != [0] or r["states"].get("COMPLETE") != FAULT_BATCH - 1:
+        fail(f"containment poison: FAIL {failed(st)}, states {r['states']}, expected trial 0 alone")
+
+    # A real out-of-memory error: OOM_WIDTH trials ask for 0.6 of the free
+    # memory, twice as many for more than the card holds. The widths must be
+    # those of the fault kit's stand-in (oom_above=OOM_WIDTH) on the same
+    # schedule, whose widths are powers of two.
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    per_trial = int(0.6 * free / OOM_WIDTH)
+    ooms = []
+
+    def hungry(params):
+        width = params["lr"].shape[0]
+        try:
+            scratch = torch.empty(width * per_trial, dtype=torch.uint8, device=params["lr"].device)
+        except torch.OutOfMemoryError:
+            ooms.append(width)
+            raise
+        del scratch
+        return fn(params)
+
+    widths: list[int] = []
+    real = VectorizedObjective(lambda p: (widths.append(p["lr"].shape[0]), hungry(p))[1], space)
+    r = run("oom", study(2), real, FAULT_TRIALS * 2)
+    r["widths"], r["ooms"] = widths, ooms
+    stand_in = FaultyVectorizedObjective(fn, space, oom_above=OOM_WIDTH)
+    run("oom stand-in", study(2), stand_in, FAULT_TRIALS * 2)
+    torch.cuda.empty_cache()
+    if not ooms or widths != stand_in.dispatch_widths or r["states"] != {"COMPLETE": FAULT_TRIALS * 2}:
+        fail(f"containment oom: widths {widths} ({len(ooms)} torch.OutOfMemoryError), stand-in "
+             f"{stand_in.dispatch_widths}, states {r['states']}")
+    if max(widths[widths.index(OOM_WIDTH) + 1:], default=0) <= OOM_WIDTH:
+        fail(f"containment oom: the batch never regrew past {OOM_WIDTH} after clean batches: {widths}")
+
+    # A hung dispatch: the deadline abandons it, bisection salvages the batch.
+    hang = FaultyVectorizedObjective(fn, space, hang_at={1}, hang_s=HANG_S)
+    r = run("hang", study(3), hang, FAULT_BATCH * 2, dispatch_deadline_s=DEADLINE_S)
+    if r["states"] != {"COMPLETE": FAULT_BATCH * 2} or hang.dispatch_widths[:4] != [FAULT_BATCH] * 2 + [FAULT_BATCH // 2] * 2:
+        fail(f"containment hang: widths {hang.dispatch_widths}, states {r['states']}")
+    for thread in threading.enumerate():  # the abandoned dispatch finishes before the next phase
+        if thread.name == "optuna-tpu-dispatch":
+            thread.join(timeout=HANG_S + 30.0)
+    torch.cuda.synchronize()
+    print(
+        f"phase 30, containment on the card (config #5's objective, RandomSampler, batches of {FAULT_BATCH}): "
+        + "; ".join(
+            f"{k}: {v['states']}" + (f", widths {v['widths']}" if v["widths"] is not None else "")
+            + (f", raised {type(v['raised']).__name__}" if v["raised"] is not None else "") + f", {v['s']:.2f} s"
+            for k, v in out.items()
+        )
+        + f"; real OOM: {len(ooms)} torch.OutOfMemoryError at widths {ooms} ({per_trial / 2**30:.2f} GiB a trial of "
+        f"{free / 2**30:.1f} GiB free)"
+    )
+
+
+def phase_gp_batches(k1_count) -> dict:
+    """GPSampler through the batch executor: Hartmann-20D
+    (``models.benchmarks.hartmann20_torch``) from 4000 seeded trials, two
+    batches of 8 through ``optimize_vectorized``. Each batch is one sparse
+    ``sample_relative_batch``: K1 launches once a batch."""
+    import torch
+
+    from optuna_tpu_torch.models.benchmarks import hartmann20_torch
+    from optuna_tpu_torch.parallel import VectorizedObjective, optimize_vectorized
+
+    study = seeded_study(GP_BATCH_FROM)
+    objective = VectorizedObjective(hartmann20_torch, hartmann_space())
+    before = k1_count()
+    t0 = time.perf_counter()
+    optimize_vectorized(study, objective, GP_BATCH * GP_BATCHES, batch_size=GP_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = k1_count() - before
+    check_gp_trials("GP batches", study, GP_BATCH_FROM, GP_BATCH * GP_BATCHES)
+    if k1 != GP_BATCHES:
+        fail(f"GP batches: K1 launched {k1} times over {GP_BATCHES} sparse batch asks, expected once each")
+    trials = study.get_trials(deepcopy=False)[GP_BATCH_FROM:]
+    distinct = len({tuple(t.params.values()) for t in trials})
+    print(
+        f"phase 31, GPSampler(seed=0) batches through optimize_vectorized (Hartmann-20D from {GP_BATCH_FROM}): "
+        f"{GP_BATCHES} batches of {GP_BATCH} in {seconds:.3f} s ({seconds / GP_BATCHES:.3f} s a batch, "
+        f"{seconds / (GP_BATCH * GP_BATCHES) * 1e3:.1f} ms a trial), K1 {k1}, {distinct} distinct points, best "
+        f"{study.best_value:.6f}"
+    )
+    return {"k1": k1, "s": seconds}
+
+
 def main() -> None:
     try:
         import torch
@@ -2863,6 +3232,19 @@ def main() -> None:
     mo_gp = phase_mo_gp(k1_count)
     gp_rest = counts()
     print(f"GP phases 25-28: {time.perf_counter() - t_gp:.1f} s, set-up and checks included")
+    t_batch = time.perf_counter()
+    reset()
+    mlp5 = phase_mlp(gpu)
+    phase_containment()
+    batch_counts = counts()  # config #5's TPE and MLP and the containment cases run no kernel of the repo
+    reset()
+    gp_batches = phase_gp_batches(k1_count)
+    gp_batch_counts = counts()
+    print(f"batch phases 29-31: {time.perf_counter() - t_batch:.1f} s, set-up and checks included")
+    if any(batch_counts.values()):
+        fail(f"phases 29-30 launched kernels of the repo: {batch_counts}")
+    if gp_batch_counts["matern52_gram"] != GP_BATCHES or any(v for k, v in gp_batch_counts.items() if k != "matern52_gram"):
+        fail(f"phase 31 launched {gp_batch_counts}, expected K1 {GP_BATCHES} and no other kernel")
     k1_rest = (chain["sparse"]["k1"] + chain["sparse"]["k1_batch"] + running["sparse"]["k1"]
                + sum(o["k1"] for o in constrained.values()))
     if gp_rest["matern52_gram"] != k1_rest or any(v for k, v in gp_rest.items() if k != "matern52_gram"):
@@ -2873,7 +3255,7 @@ def main() -> None:
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
-        + gp_rest["matern52_gram"],
+        + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
@@ -2889,7 +3271,7 @@ def main() -> None:
         f"NSGA-II workers); slicing and HSSP {hssp_counts}; NSGA-III {nsga3_counts}; MOTPE DTLZ2 {motpe3_counts}; "
         f"GP phases 25-28: K1 {gp_rest['matern52_gram']} = chain {chain['sparse']['k1']} + batch "
         f"{chain['sparse']['k1_batch']}, running {running['sparse']['k1']}, constraints "
-        f"{constrained[4000]['k1']}, LogEHVI 0)"
+        f"{constrained[4000]['k1']}, LogEHVI 0; phase 31: K1 {gp_batches['k1']} over {GP_BATCHES} batches)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -2904,7 +3286,8 @@ def main() -> None:
     if hssp_counts["wfg_stack"] != HSSP_K or launches["wfg_stack"] != 2 + HSSP_K:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
-    paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest)
+    paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
+             batch_counts, gp_batch_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -2934,7 +3317,9 @@ def main() -> None:
         f"s/trial ({running[2]['qlogei_ask_s']:.3f} s a qLogEI ask), qLogEI {running['exact']['s']:.3f} / {running['sparse']['s']:.3f} s/ask, constrained "
         f"{float(np.median(constrained[1000]['s'])):.3f} / {float(np.median(constrained[4000]['s'])):.3f} s/ask, "
         f"LogEHVI ZDT1 {float(np.median(mo_gp['ZDT1']['s'])):.3f} / DTLZ2 {float(np.median(mo_gp['DTLZ2']['s'])):.3f} "
-        f"s/ask, total {time.perf_counter() - t_start:.1f} s"
+        f"s/ask, config #5 {mlp5['trials_per_s'][0]:.1f} trials/s ({mlp5['gflops']:.1f} GFLOP/s in a "
+        f"{mlp5['batch_ms']:.3f} ms batch), GP batches of {GP_BATCH} {gp_batches['s'] / GP_BATCHES:.3f} s, "
+        f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

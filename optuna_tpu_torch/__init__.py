@@ -20,7 +20,11 @@ BruteForce and PartialFixed samplers, ``GuardedSampler``):
   ``QMCSampler``;
 * **scan**: ``Study.optimize_scan`` / ``parallel.optimize_scan``, the
   device-resident ask → evaluate → tell loop over a batched objective
-  (``parallel.VectorizedObjective``), exact and SGPR chunks.
+  (``parallel.VectorizedObjective``), exact and SGPR chunks;
+* **batched trials**: ``Study.ask_batch`` and ``parallel.optimize_vectorized``
+  (``ResilientBatchExecutor``: quarantine, bisection, OOM halving, the
+  dispatch deadline), B trials a dispatch of a batched objective, such as
+  config #5's MLP (``models.mlp``).
 
 Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
 (``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the

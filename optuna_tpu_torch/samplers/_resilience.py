@@ -348,6 +348,12 @@ class GuardedSampler(BaseSampler):
         self._pins: dict[int, int] = {}
         self._pin_reasons: dict[int, str] = {}
         self._pin_lock = threading.Lock()
+        #: Why the last ``sample_relative_batch`` call failed (None when it
+        #: succeeded or declined). The batch executor reads it to tell the
+        #: two Nones apart: a decline goes to per-trial relative sampling, a
+        #: failure degrades the whole batch to independent sampling at once,
+        #: never B more attempts of a broken fit.
+        self.last_batch_fallback_reason: str | None = None
 
     @property
     def sampler(self) -> BaseSampler:
@@ -554,6 +560,7 @@ class GuardedSampler(BaseSampler):
         """Guarded batch ask. Returns None — the per-trial path, which this
         wrapper guards trial by trial — when the wrapped sampler lacks the
         hook, declines, or fails."""
+        self.last_batch_fallback_reason = None
         if self._consume_pin(batch_size):
             # Autopilot pin, batch form: answer the whole batch with empty
             # relative proposals in one decision (each consumes one pinned
@@ -569,6 +576,7 @@ class GuardedSampler(BaseSampler):
                 lambda: inner(study, search_space, batch_size), "batch relative fit"
             )
         except Exception as err:  # ring-2 containment boundary: a batch-fit crash degrades the whole batch to independent sampling ('raise' policy re-raises in _contain)
+            self.last_batch_fallback_reason = f"{type(err).__name__}: {err}"[:500]
             self._contain(study, None, "relative_batch", err)
             return None
 

@@ -3,9 +3,10 @@
 This carries ``create_study``, ``load_study``, ``delete_study``,
 ``copy_study``, ``get_all_study_names``, ``get_all_study_summaries``,
 ``Study.optimize`` (``n_jobs`` threads, the progress bar),
-``ask/tell/add_trial(s)``, ``Study.optimize_scan``, ``trials_dataframe``,
-``sampler_fallback=`` and the ``best_*`` accessors; the sharded loop and
-``ask_batch`` are not ported yet.
+``ask/tell/add_trial(s)``, ``ask_batch`` (the host half of
+``parallel.optimize_vectorized``), ``Study.optimize_scan``,
+``trials_dataframe``, ``sampler_fallback=`` and the ``best_*`` accessors;
+the sharded loop waits for the sharded tier (ROADMAP A8a).
 
 Parity target: ``optuna/study/study.py`` (``Study:67``, ``create_study:1203``,
 ``load_study:1358``, ``delete_study:1447``, ``copy_study:1510``,
@@ -276,6 +277,45 @@ class Study:
                 trial._trial_id
             ).system_attrs
         return trial
+
+    def ask_batch(
+        self, n: int, fixed_distributions: dict[str, BaseDistribution] | None = None
+    ) -> list[Trial]:
+        """Create ``n`` trials in one storage batch, claiming WAITING trials
+        first: the host half of vectorized optimization (reference
+        ``optuna_tpu/study/study.py:319``).
+
+        Semantically ``[study.ask() for _ in range(n)]``, but the fresh trials
+        come from ``storage.create_new_trials``, so the batch costs one
+        storage batch instead of n. An error while claiming, creating or
+        initializing FAILs every trial already claimed or created (and fires
+        the storage's failed-trial callback for each, so a claimed retry
+        clone is enqueued again), then re-raises.
+        """
+        if not self._thread_local.in_optimize_loop and is_heartbeat_enabled(self._storage):
+            warnings.warn("Heartbeat of storage is supposed to be used with Study.optimize.")
+
+        fixed_distributions = fixed_distributions or {}
+        self._thread_local.cached_all_trials = None
+
+        trial_ids: list[int] = []
+        try:
+            while len(trial_ids) < n:
+                waiting = self._pop_waiting_trial_id()
+                if waiting is None:
+                    break
+                trial_ids.append(waiting)
+            if len(trial_ids) < n:
+                trial_ids.extend(self._storage.create_new_trials(self._study_id, n - len(trial_ids)))
+            return [self._init_asked_trial(tid, fixed_distributions) for tid in trial_ids]
+        except Exception as init_err:  # containment boundary: every trial in trial_ids is already RUNNING with no heartbeat yet, so fail_stale_trials could never reap it; FAIL them all, then re-raise
+            fail_and_notify_trials(
+                self,
+                trial_ids,
+                reason=f"batch ask aborted: init raised {init_err!r}",
+                best_effort=True,
+            )
+            raise
 
     def tell(
         self,
@@ -612,4 +652,4 @@ def get_all_study_summaries(
 # Imports placed at the tail to break the storages<->study cycle.
 import warnings  # noqa: E402
 
-from optuna_tpu_torch.storages._heartbeat import is_heartbeat_enabled  # noqa: E402
+from optuna_tpu_torch.storages._heartbeat import fail_and_notify_trials, is_heartbeat_enabled  # noqa: E402

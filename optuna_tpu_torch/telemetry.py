@@ -43,6 +43,7 @@ __all__ = [
     "get_registry",
     "max_gauge",
     "observe",
+    "observe_phase",
     "phase_totals",
     "reset",
     "set_gauge",
@@ -291,6 +292,18 @@ def observe(name: str, value: float) -> None:
     if not _enabled:
         return
     _REGISTRY.observe(name, value)
+
+
+def observe_phase(name: str, seconds: float) -> None:
+    """Record one already-measured duration into the ``phase.<name>``
+    histogram, for a phase that spans code blocks which are not contiguous
+    (the batch executor's ask covers the batch creation and the
+    suggestions inside the heartbeat): two ``span()`` blocks would double
+    the phase's count and halve its time an operation. A no-op while
+    disabled."""
+    if not _enabled:
+        return
+    _REGISTRY.observe(_PHASE_METRIC_PREFIX + name, seconds)
 
 
 def set_gauge(name: str, value: float) -> None:

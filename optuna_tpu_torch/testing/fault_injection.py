@@ -16,8 +16,13 @@
   and :class:`FaultySampler` raises / hangs / proposes NaN at the n-th
   relative suggestion.
 
+* Device-dispatch chaos (:mod:`optuna_tpu_torch.parallel.executor` is the
+  layer under test): :class:`FaultyVectorizedObjective` poisons, crashes,
+  runs out of memory, kills or hangs chosen dispatches of a batched
+  objective, and :class:`FakeResourceExhaustedError` is the OOM stand-in.
+
 The journal, device-stat, pod, health, hub-fleet, lease and checkpoint
-chaos of the reference wait for ROADMAP A8, A9 and A11.
+chaos of the reference wait for ROADMAP A8, A8a, A9 and A11.
 
 Typical chaos test::
 
@@ -388,3 +393,143 @@ class FaultySampler:
 
     def __str__(self) -> str:
         return f"FaultySampler({self._inner})"
+
+
+# ----------------------------------------------------- device-dispatch chaos
+
+
+class FakeResourceExhaustedError(RuntimeError):
+    """An allocation-failure stand-in: the executor classifies OOM by type
+    (``torch.OutOfMemoryError``) or by the ``RESOURCE_EXHAUSTED`` text, so
+    no allocator error needs constructing."""
+
+
+#: Chaos matrix for the executor's non-finite quarantine policies: every
+#: policy literal the executor accepts maps to the injection scenario the
+#: chaos suite runs against it. A hand-written literal, not an import of
+#: ``parallel.executor.NON_FINITE_POLICIES``: the tests hold the two key
+#: sets equal, so a policy added without a chaos scenario fails them.
+NON_FINITE_CHAOS_POLICIES: dict[str, str] = {
+    "fail": "inject NaN at batch positions; those trials FAIL, the rest COMPLETE finite",
+    "raise": "inject NaN; the executor quarantines as FAIL and then raises to the caller",
+    "clip": "inject NaN; every trial COMPLETEs with finite (nan_to_num) values",
+}
+
+
+class FaultyVectorizedObjective:
+    """A ``VectorizedObjective`` whose dispatches misbehave on schedule.
+
+    Every knob is keyed by the 0-based **dispatch index** (counted per
+    objective, the executor's bisection and halving re-dispatches included;
+    ``dispatch_widths`` follows the recursion):
+
+    ``nan_at``
+        ``{dispatch: positions}``: the first float parameter column is set
+        to NaN at those batch positions before the call, so the objective's
+        output is NaN there and the executor's finite mask quarantines
+        exactly those trials.
+    ``raise_at`` / ``oom_at`` / ``kill_at`` / ``hang_at``
+        Dispatch indices that raise ``error_factory(index)``, raise
+        :class:`FakeResourceExhaustedError`, raise
+        :class:`SimulatedWorkerDeath` (through every containment layer,
+        leaving the batch RUNNING for heartbeat failover), or sleep
+        ``hang_s`` seconds (tripping the executor's dispatch deadline).
+    ``oom_above``
+        Width threshold: any dispatch wider than this raises the OOM
+        stand-in, the knob behind "halve until it fits".
+    ``raise_when``
+        Host predicate over the packed params as numpy arrays; a persistent
+        poison (``lambda p: (p["x"] > 0.9).any()``) follows the poison trial
+        through bisection instead of striking a fixed dispatch.
+
+    Faults strike before the wrapped objective runs. Reading the params for
+    ``raise_when`` or ``nan_at`` is a host read of the card's tensors; the
+    poisoned column goes back to the tensor's device.
+    """
+
+    def __init__(
+        self,
+        fn: Callable[[dict[str, Any]], Any],
+        search_space: dict,
+        *,
+        nan_at: Mapping[int, Sequence[int]] | None = None,
+        raise_at: Collection[int] = (),
+        oom_at: Collection[int] = (),
+        kill_at: Collection[int] = (),
+        hang_at: Collection[int] = (),
+        hang_s: float = 30.0,
+        oom_above: int | None = None,
+        raise_when: Callable[[dict[str, "np.ndarray"]], bool] | None = None,
+        error_factory: Callable[[int], Exception] = lambda index: RuntimeError(
+            f"injected dispatch crash at dispatch #{index}"
+        ),
+    ) -> None:
+        from optuna_tpu_torch.parallel.vectorized import VectorizedObjective
+
+        self._inner = VectorizedObjective(fn, search_space)
+        self.fn = fn
+        self.search_space = search_space
+        self.nan_at = dict(nan_at or {})
+        self.raise_at = frozenset(raise_at)
+        self.oom_at = frozenset(oom_at)
+        self.kill_at = frozenset(kill_at)
+        self.hang_at = frozenset(hang_at)
+        self.hang_s = hang_s
+        self.oom_above = oom_above
+        self.raise_when = raise_when
+        self.error_factory = error_factory
+        self.dispatches = 0
+        self.dispatch_widths: list[int] = []
+
+    def compiled(self, mesh=None, batch_axis="trials"):
+        return self._inner.compiled(mesh, batch_axis)
+
+    def guarded(self, mesh=None, batch_axis="trials", non_finite: str = "fail"):
+        import torch
+
+        inner = self._inner.guarded(mesh, batch_axis, non_finite)
+
+        def _faulty(args: dict) -> Any:
+            index = self.dispatches
+            self.dispatches += 1
+            width = int(next(iter(args.values())).shape[0]) if args else 0
+            self.dispatch_widths.append(width)
+            if index in self.kill_at:
+                raise SimulatedWorkerDeath(f"scheduled worker death at dispatch #{index}")
+            if index in self.oom_at or (self.oom_above is not None and width > self.oom_above):
+                raise FakeResourceExhaustedError(
+                    f"RESOURCE_EXHAUSTED: out of memory allocating a "
+                    f"{width}-wide dispatch (injected)"
+                )
+            if index in self.raise_at:
+                raise self.error_factory(index)
+            positions = [p for p in self.nan_at.get(index, ()) if p < width]
+            if self.raise_when is not None or positions:
+                host = {k: v.detach().cpu().numpy() for k, v in args.items()}
+                if self.raise_when is not None and self.raise_when(host):
+                    raise self.error_factory(index)
+            if index in self.hang_at:
+                time.sleep(self.hang_s)
+            if positions:
+                name = next(k for k, v in host.items() if np.issubdtype(v.dtype, np.floating))
+                column = host[name].copy()
+                column[positions] = np.nan
+                args = {**args, name: torch.as_tensor(column, device=args[name].device)}
+            return inner(args)
+
+        return _faulty
+
+
+# ------------------------------------------------------------- sampler chaos
+
+
+#: Chaos matrix for the sampler resilience layer's fallback policies: every
+#: policy literal ``GuardedSampler`` and the executor accept maps to the
+#: injection scenario the chaos suite runs against it (held equal to
+#: ``samplers._resilience.FALLBACK_POLICIES`` by the tests).
+FALLBACK_CHAOS_POLICIES: dict[str, str] = {
+    "independent": "inject sampler raise/hang/NaN; the budget completes via "
+    "independent sampling, fallback attrs on exactly the degraded trials",
+    "raise": "inject sampler raise; the error surfaces to the caller after "
+    "the fallback attr is recorded",
+}

@@ -147,3 +147,49 @@ def reference_cma_draws(monkeypatch):
     from optuna_tpu_torch.ops import cmaes
 
     monkeypatch.setattr(cmaes, "ask_draws", jax_cma_draws)
+
+
+# ----------------------------------------------- heartbeats without a database
+
+
+def heartbeat_storage(pkg, interval=60, failed_trial_callback=None):
+    """An in-memory storage of ``pkg`` with the heartbeat mixin, standing in
+    for the reference tests' RDB storage (the port has no RDB yet): beats
+    are counted per trial, and the trials named in ``stale`` are stale while
+    RUNNING, as a dead worker's are once its beats age past the grace
+    period."""
+
+    class HeartbeatStorage(pkg.storages.InMemoryStorage, pkg.storages.BaseHeartbeat):
+        def __init__(self) -> None:
+            super().__init__()
+            self.beats: dict[int, int] = {}
+            self.stale: set[int] = set()
+
+        def record_heartbeat(self, trial_id):
+            self.beats[trial_id] = self.beats.get(trial_id, 0) + 1
+
+        def _get_stale_trial_ids(self, study_id):
+            return sorted(t for t in self.stale if self.get_trial(t).state == pkg.TrialState.RUNNING)
+
+        def get_heartbeat_interval(self):
+            return interval
+
+        def get_failed_trial_callback(self):
+            return failed_trial_callback
+
+    return HeartbeatStorage()
+
+
+@pytest.fixture(scope="module")
+def join_abandoned_dispatches():
+    """Join, after a test module, the dispatch threads its deadline tests
+    abandoned (both packages name them ``optuna-tpu-dispatch``). A thread
+    that wakes from its injected hang while the interpreter shuts down
+    dies inside the framework's C++ frames and aborts the process; joined
+    here, it finishes its call first."""
+    import threading
+
+    yield
+    for thread in threading.enumerate():
+        if thread.name == "optuna-tpu-dispatch":
+            thread.join(timeout=30.0)

@@ -300,3 +300,44 @@ def test_pandas_and_tqdm_are_imported_only_where_used():
     for path in sorted(PACKAGE.rglob("*.py")):
         assert not (_module_level_roots(path) & {"pandas", "tqdm"}), path
     assert not (_imported_roots(REPO / "chip_smoke.py") & {"pandas", "tqdm"})
+
+
+BATCH_MODULES = [
+    "optuna_tpu_torch.models",
+    "optuna_tpu_torch.models.mlp",
+    "optuna_tpu_torch.parallel.executor",
+    "optuna_tpu_torch.parallel.vectorized",
+    "optuna_tpu_torch.study.study",
+    "optuna_tpu_torch.testing.fault_injection",
+]
+
+
+def test_the_batch_modules_import_with_jax_and_the_reference_blocked():
+    """Batched trial execution (``optimize_vectorized``, the executor and its
+    fault kit, ``ask_batch``, config #5's MLP) imports with ``jax``,
+    ``jaxlib`` and ``optuna_tpu`` refused."""
+    assert set(BATCH_MODULES) <= set(_all_modules())
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {BATCH_MODULES!r}: importlib.import_module(m)\n"
+        "import optuna_tpu_torch as ot\n"
+        "from optuna_tpu_torch.testing import fault_injection as kit\n"
+        "for n in ('optimize_vectorized', 'ResilientBatchExecutor', 'NON_FINITE_POLICIES',\n"
+        "          'NonFiniteObjectiveError', 'DispatchTimeoutError'):\n"
+        "    assert n in ot.parallel.__all__ and getattr(ot.parallel, n)\n"
+        "for n in ('FaultyVectorizedObjective', 'FakeResourceExhaustedError', 'NON_FINITE_CHAOS_POLICIES',\n"
+        "          'FALLBACK_CHAOS_POLICIES'): getattr(kit, n)\n"
+        "assert ot.Study.ask_batch and ot.models.mlp.train_scaled_batch and ot.models.branin\n"
+        "assert 'mlp' in ot.models.__all__\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
+    )
+    assert out.returncode == 0, out.stderr

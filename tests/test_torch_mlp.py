@@ -1,0 +1,210 @@
+"""The port's MLP (``optuna_tpu_torch/models/mlp.py``) and BASELINE config
+#5's batched objective against the reference (``optuna_tpu/models/mlp.py``,
+``bench.py::run_ours_mlp_vectorized``), on the CPU at a narrow width.
+
+JAX's key stream cannot be matched, so the reference's weights are carried
+across with ``mlp_params_from_numpy`` and both packages train the same
+network on the same ``RandomState`` data. Tolerances (float32, measured
+on these shapes at 2.4e-6 for the logits, 6e-8 for 20 SGD steps, 1.2e-7
+relative for the batched losses, with margin for other BLAS builds):
+
+- logits ``FORWARD_ATOL``; the cross-entropy and every SGD step's
+  parameters and loss ``STEP_ATOL``;
+- config #5's final losses over 8 trials (10 SGD steps from
+  ``base * init_scale`` at rate ``lr``) against the reference's
+  ``jax.vmap(value_and_grad)`` program, ``BATCH_RTOL`` relative;
+- the batch (one autograd call over the summed losses) against each trial
+  trained alone, ``BATCH_RTOL`` relative: the trials share no parameter;
+- a config #5 study of 16 trials through ``optimize_vectorized`` with
+  ``RandomSampler`` on both packages: params bit for bit, values
+  ``BATCH_RTOL`` relative.
+
+The test marked ``cuda`` holds one batch of 256 at config #5's full width
+(784 inputs, hidden 32, 256 examples) on the card against CPU torch in
+float64, within ``CARD_F64_RTOL`` plus twice CPU float32's own error.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import optuna_tpu
+import optuna_tpu.parallel
+import optuna_tpu_torch
+from optuna_tpu_torch.models import mlp
+from tests._torch_port import cuda_device, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+FORWARD_ATOL = 1e-5
+STEP_ATOL = 1e-5
+BATCH_RTOL = 1e-5
+# A batch of 256 on the card against CPU torch in float64, trial by trial:
+# |card - f64| <= CARD_F64_RTOL * |f64| + 2 * |cpu32 - f64|. Ten SGD steps at a
+# rate near 1 amplify float32 rounding ("NVIDIA H100 80GB HBM3, 700.00 W", random draws: card 5.0e-4
+# and CPU float32 4.6e-4 from float64; a TPE-chosen trial: 2.5e-4 and 1.24e-2).
+CARD_F64_RTOL = 1e-3
+N_IN, N_HIDDEN, N_OUT, N_EXAMPLES, N_STEPS = 64, 8, 10, 32, 10
+
+
+def _problem(n_in=N_IN, n_hidden=N_HIDDEN, n_out=N_OUT, n_batch=N_EXAMPLES):
+    """``bench.py::_mlp_problem``'s draws, at a chosen size."""
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(n_batch, n_in)).astype(np.float32)
+    y = rng.randint(0, n_out, n_batch).astype(np.int32)
+    init = {
+        "w1": rng.normal(0, 0.1, (n_in, n_hidden)).astype(np.float32),
+        "b1": np.zeros(n_hidden, np.float32),
+        "w2": rng.normal(0, 0.1, (n_hidden, n_out)).astype(np.float32),
+        "b2": np.zeros(n_out, np.float32),
+    }
+    return x, y, init
+
+
+@functools.lru_cache(maxsize=1)
+def _reference_params():
+    import jax
+
+    from optuna_tpu.models import mlp as ref
+
+    return tuple(np.array(a) for a in ref.init_mlp(jax.random.PRNGKey(0), N_IN, N_HIDDEN, N_OUT))
+
+
+def _close(a, b, atol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=atol)
+
+
+def test_forward_and_cross_entropy_match_reference():
+    import jax.numpy as jnp
+
+    from optuna_tpu.models import mlp as ref
+
+    x, y, _ = _problem()
+    rp = _reference_params()
+    pp = mlp.mlp_params_from_numpy(rp, "cpu")
+    ref_logits = np.array(ref.mlp_forward(ref.MLPParams(*map(jnp.asarray, rp)), jnp.asarray(x)))
+    logits = mlp.mlp_forward(pp, torch.from_numpy(x))
+    _close(logits, ref_logits, FORWARD_ATOL)
+    ref_ce = float(ref.cross_entropy(jnp.asarray(ref_logits), jnp.asarray(y)))
+    _close(float(mlp.cross_entropy(torch.from_numpy(ref_logits), torch.from_numpy(y))), ref_ce, STEP_ATOL)
+
+
+@pytest.mark.parametrize("n_steps", [1, 20])
+def test_sgd_steps_match_reference(n_steps):
+    import jax.numpy as jnp
+
+    from optuna_tpu.models import mlp as ref
+
+    x, y, _ = _problem()
+    rp = _reference_params()
+    lr = np.float32(0.1)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    if n_steps == 1:
+        ref_params, ref_loss = ref.sgd_step(ref.MLPParams(*map(jnp.asarray, rp)), jx, jy, jnp.asarray(lr))
+        params, loss = mlp.sgd_step(mlp.mlp_params_from_numpy(rp, "cpu"), torch.from_numpy(x), torch.from_numpy(y), 0.1)
+    else:
+        ref_params, ref_loss = ref.train_mlp(ref.MLPParams(*map(jnp.asarray, rp)), jx, jy, jnp.asarray(lr), n_steps)
+        params, loss = mlp.train_mlp(
+            mlp.mlp_params_from_numpy(rp, "cpu"), torch.from_numpy(x), torch.from_numpy(y), torch.tensor(lr), n_steps
+        )
+    for got, want in zip(params, ref_params):
+        _close(got, want, STEP_ATOL)
+    _close(float(loss), float(ref_loss), STEP_ATOL)
+
+
+def test_init_mlp_draws_from_the_generator():
+    g = torch.Generator().manual_seed(3)
+    a = mlp.init_mlp(g, 784, 32, 10)
+    b = mlp.init_mlp(torch.Generator().manual_seed(3), 784, 32, 10)
+    assert [tuple(p.shape) for p in a] == [(784, 32), (32,), (32, 10), (10,)]
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    assert not a.b1.any() and not a.b2.any()
+    assert abs(float(a.w1.std()) - (2.0 / 784) ** 0.5) < 0.01 * (2.0 / 784) ** 0.5 * 10
+
+
+def _reference_batch_program(init, x, y, n_steps):
+    """``bench.py::run_ours_mlp_vectorized``'s objective, at any size."""
+    import jax
+    import jax.numpy as jnp
+
+    from optuna_tpu.models.mlp import MLPParams, cross_entropy, mlp_forward
+
+    base = MLPParams(*(jnp.asarray(init[k]) for k in MLPParams._fields))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+
+    def train_one(lr, scale):
+        p = jax.tree.map(lambda a: a * scale, base)
+
+        def step(p, _):
+            loss, grads = jax.value_and_grad(lambda q: cross_entropy(mlp_forward(q, jx), jy))(p)
+            return jax.tree.map(lambda a, g: a - lr * g, p, grads), loss
+
+        p, _ = jax.lax.scan(step, p, None, length=n_steps)
+        return cross_entropy(mlp_forward(p, jx), jy)
+
+    return jax.jit(lambda params: jax.vmap(train_one)(params["lr"], params["init_scale"]))
+
+
+def _draws(n: int):
+    rng = np.random.RandomState(1)
+    lr = np.exp(rng.uniform(np.log(1e-3), 0.0, n)).astype(np.float32)
+    return lr, rng.uniform(0.3, 3.0, n).astype(np.float32)
+
+
+def test_config5_batched_objective_matches_reference_and_each_trial_alone():
+    x, y, init = _problem()
+    lr, scale = _draws(8)
+    ref = np.asarray(_reference_batch_program(init, x, y, N_STEPS)({"lr": lr, "init_scale": scale}))
+    base = mlp.mlp_params_from_numpy(init, "cpu")
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    port = mlp.train_scaled_batch(base, tx, ty, torch.from_numpy(lr), torch.from_numpy(scale), N_STEPS).numpy()
+    assert port.shape == (8,) and np.isfinite(port).all()
+    np.testing.assert_allclose(port, ref, rtol=BATCH_RTOL)
+    alone = []
+    for rate, s in zip(lr, scale):
+        params, _ = mlp.train_mlp(mlp.MLPParams(*(p * float(s) for p in base)), tx, ty, torch.tensor(rate), N_STEPS)
+        alone.append(float(mlp.cross_entropy(mlp.mlp_forward(params, tx), ty)))
+    np.testing.assert_allclose(port, alone, rtol=BATCH_RTOL)
+
+
+def test_config5_study_matches_reference():
+    x, y, init = _problem()
+    ref_program = _reference_batch_program(init, x, y, N_STEPS)
+    base = mlp.mlp_params_from_numpy(init, "cpu")
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+
+    def port_fn(params):
+        return mlp.train_scaled_batch(base, tx, ty, params["lr"], params["init_scale"], N_STEPS)
+
+    def run(pkg, fn, **kwargs):
+        space = {
+            "lr": pkg.distributions.FloatDistribution(1e-3, 1.0, log=True),
+            "init_scale": pkg.distributions.FloatDistribution(0.3, 3.0),
+        }
+        study = pkg.create_study(sampler=pkg.samplers.RandomSampler(seed=0))
+        pkg.parallel.optimize_vectorized(study, pkg.parallel.VectorizedObjective(fn, space), 16, batch_size=8, **kwargs)
+        return study
+
+    ref = run(optuna_tpu, ref_program)
+    port = run(optuna_tpu_torch, port_fn, device="cpu")
+    assert [t.params for t in port.trials] == [t.params for t in ref.trials]
+    assert all(t.state == optuna_tpu_torch.TrialState.COMPLETE for t in port.trials)
+    np.testing.assert_allclose([t.value for t in port.trials], [t.value for t in ref.trials], rtol=BATCH_RTOL)
+
+
+@pytest.mark.cuda
+def test_config5_batch_on_the_card_matches_cpu_torch(cuda_device):
+    x, y, init = _problem(784, 32, 10, 256)
+    lr, scale = _draws(256)
+    out = []
+    for dev, dtype in ((cuda_device, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        base = mlp.MLPParams(*(p.to(dtype) for p in mlp.mlp_params_from_numpy(init, dev)))
+        args = [torch.from_numpy(a).to(dev) for a in (x, y, lr, scale)]
+        out.append(mlp.train_scaled_batch(base, args[0].to(dtype), *args[1:], 10).cpu().double().numpy())
+    card, cpu32, cpu64 = out
+    assert np.isfinite(card).all()
+    assert np.all(np.abs(card - cpu64) <= CARD_F64_RTOL * np.abs(cpu64) + 2.0 * np.abs(cpu32 - cpu64))

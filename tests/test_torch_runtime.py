@@ -38,7 +38,7 @@ import torch
 import optuna_tpu
 import optuna_tpu_torch
 from optuna_tpu_torch.testing.fault_injection import PATHOLOGICAL_HISTORY_PLANS
-from tests._torch_port import cuda_device, reference_tpe_draws  # noqa: F401
+from tests._torch_port import cuda_device, heartbeat_storage, reference_tpe_draws  # noqa: F401
 
 PKGS = (optuna_tpu, optuna_tpu_torch)
 PARAM_TOL = 5e-5  # TPE past its startup trials: of the transformed width (tests/test_torch_tpe.py)
@@ -575,29 +575,8 @@ def test_progress_bar_runs_and_degrades_as_the_reference(monkeypatch):
 
 
 def _heartbeat_storage(pkg, interval=1):
-    class HeartbeatStorage(pkg.storages.InMemoryStorage, pkg.storages.BaseHeartbeat):
-        """In-memory storage with the heartbeat mixin: beats are counted, and
-        trials named in ``stale`` are stale once RUNNING."""
-
-        def __init__(self) -> None:
-            super().__init__()
-            self.beats: dict[int, int] = {}
-            self.stale: set[int] = set()
-            self.callback = pkg.storages.RetryFailedTrialCallback()
-
-        def record_heartbeat(self, trial_id):
-            self.beats[trial_id] = self.beats.get(trial_id, 0) + 1
-
-        def _get_stale_trial_ids(self, study_id):
-            return sorted(t for t in self.stale if self.get_trial(t).state == pkg.TrialState.RUNNING)
-
-        def get_heartbeat_interval(self):
-            return interval
-
-        def get_failed_trial_callback(self):
-            return self.callback
-
-    return HeartbeatStorage()
+    """An in-memory heartbeat storage whose failed-trial callback clones."""
+    return heartbeat_storage(pkg, interval, pkg.storages.RetryFailedTrialCallback())
 
 
 def test_stale_trials_are_reaped_and_retried_as_in_the_reference():
