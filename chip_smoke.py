@@ -162,13 +162,30 @@ Phases (any failure exits non-zero and prints no result line):
 31. GPSampler on Hartmann-20D (``hartmann20_torch``) from 4000 seeded
     trials, two batches of 8 through ``optimize_vectorized``: K1 exactly once
     a batch (one sparse ``sample_relative_batch``), every trial COMPLETE.
+32. Preempt and resume config #2's scan study over durable storages: the
+    1100 COMPLETE trials of :func:`history_trials` written into a
+    journal file (``JournalStorage(JournalFileBackend)``) and into sqlite
+    (``create_study(storage="sqlite:///...")``) in a temporary directory;
+    ``optimize_scan`` of 96 trials (``sync_every`` 32, seed 0, ``n_exact_max``
+    1024, m = 256: every chunk SGPR at bucket 2048) on the journal study,
+    killed at its 45th tell (``FaultInjectorStorage``'s
+    ``SimulatedWorkerDeath``, inside the second chunk's sync); the study
+    reloaded from the file through a new storage object and resumed
+    (``resume=True``); the uninterrupted twin on the sqlite study. Exactly
+    96 budget-consuming tells, nothing RUNNING, no op token told twice,
+    ``checkpoint.restore`` once and ``checkpoint.fallback`` never, the
+    resumed trials equal to the twin's (params and values, trial for
+    trial), and K1 exactly once a chunk boundary and once a swap-in over
+    the three runs (the killed run's third chunk, dispatched but never
+    synced, swaps as the resumed run's last chunk does). Seconds of the
+    seeding, of each run and of the resume's restore.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31) and read
-just after it; every kernel must have launched on its path, the
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32) and
+read just after it; every kernel must have launched on its path, the
 single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
-phase 7 and 16 times on phase 21, K1 exactly twice on phase 31,
-and the
+phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
+chunk and a swap-in on phase 32, and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -182,8 +199,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -881,27 +900,34 @@ def phase_thresholds() -> None:
     print("routing thresholds (TPU-measured, kept; rank best of 3 calls, WFG one call a side): " + "; ".join(parts))
 
 
-def seeded_study(n_history: int, seed: int = 0, constraint: bool = False, **sampler_kwargs):
-    """A Hartmann-20D GPSampler study with ``n_history`` seeded COMPLETE
-    trials; with ``constraint`` each carries the constraint attrs of
-    :func:`sum_constraint`."""
+def history_trials(n_history: int, seed: int = 0, constraint: bool = False) -> list:
+    """``n_history`` COMPLETE Hartmann-20D trials (uniform points from
+    ``default_rng(seed)``); with ``constraint`` each carries the constraint
+    attrs of :func:`sum_constraint`."""
     import optuna_tpu_torch as ot
     from optuna_tpu_torch.distributions import FloatDistribution
     from optuna_tpu_torch.models.benchmarks import hartmann6_np
-    from optuna_tpu_torch.samplers import GPSampler
 
     rng = np.random.default_rng(seed)
     X = rng.uniform(0.0, 1.0, size=(n_history, 20))
     values = hartmann6_np(X)
     dists = {f"x{i}": FloatDistribution(0.0, 1.0) for i in range(20)}
-    study = ot.create_study(sampler=GPSampler(seed=seed, **sampler_kwargs))
-    study.add_trials(
+    return [
         ot.create_trial(
             params={f"x{i}": float(row[i]) for i in range(20)}, distributions=dists, value=float(v),
             system_attrs={"constraints": (float(row.sum()) - 10.0,)} if constraint else None,
         )
         for row, v in zip(X, values)
-    )
+    ]
+
+
+def seeded_study(n_history: int, seed: int = 0, constraint: bool = False, **sampler_kwargs):
+    """A Hartmann-20D GPSampler study holding :func:`history_trials`."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import GPSampler
+
+    study = ot.create_study(sampler=GPSampler(seed=seed, **sampler_kwargs))
+    study.add_trials(history_trials(n_history, seed, constraint))
     return study
 
 
@@ -3126,6 +3152,134 @@ def phase_gp_batches(k1_count) -> dict:
     return {"k1": k1, "s": seconds}
 
 
+RESUME_HISTORY = 1100  # 1100 + 96 trials: bucket 2048, above n_exact_max 1024, so every chunk is SGPR
+RESUME_TRIALS = 96
+RESUME_SYNC = 32
+RESUME_KILL_AT = 44  # set_trial_state_values call index: the 13th tell of the second chunk
+
+
+def scan_run(label: str, fn) -> tuple[float, dict, dict, dict]:
+    """``fn()`` under a fresh telemetry registry: (host seconds to the card's
+    last op, phase totals, counters, device stats)."""
+    import torch
+
+    from optuna_tpu_torch import device_stats, telemetry
+
+    telemetry.enable(telemetry.MetricsRegistry())
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        snap = telemetry.snapshot()
+        return seconds, telemetry.phase_totals(), snap["counters"], device_stats.stat_gauges()
+    finally:
+        telemetry.disable()
+
+
+def phase_resume(k1_count) -> dict:
+    """Phase 32 (see the module docstring)."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import checkpoint
+    from optuna_tpu_torch.parallel import optimize_scan
+    from optuna_tpu_torch.samplers import RandomSampler
+    from optuna_tpu_torch.storages import JournalFileBackend, JournalStorage
+    from optuna_tpu_torch.testing.fault_injection import FaultInjectorStorage, FaultPlan, SimulatedWorkerDeath
+
+    objective = scan_objective()
+    kwargs = dict(sync_every=RESUME_SYNC, seed=0, n_exact_max=1024, n_inducing=256)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        journal = os.path.join(tmp, "resume.journal")
+        sqlite_url = f"sqlite:///{os.path.join(tmp, 'twin.db')}"
+        history = history_trials(RESUME_HISTORY)
+        seed_s = {}
+        for name, storage in (("journal", JournalStorage(JournalFileBackend(journal))), ("sqlite", sqlite_url)):
+            t0 = time.perf_counter()
+            ot.create_study(storage=storage, study_name="resume", sampler=RandomSampler(seed=0)).add_trials(history)
+            seed_s[name] = time.perf_counter() - t0
+
+        def load(storage):
+            return ot.load_study(study_name="resume", storage=storage, sampler=RandomSampler(seed=0))
+
+        injector = FaultInjectorStorage(
+            JournalStorage(JournalFileBackend(journal)),
+            FaultPlan(kill_schedule={"set_trial_state_values": (RESUME_KILL_AT,)}),
+        )
+        killed = load(injector)
+        k1_before = k1_count()
+
+        def kill_run():
+            try:
+                optimize_scan(killed, objective, RESUME_TRIALS, **kwargs)
+            except SimulatedWorkerDeath:
+                return
+            fail("resume: the scheduled kill never struck")
+
+        kill_s, kill_phases, _, kill_g = scan_run("killed", kill_run)
+        k1_kill = k1_count() - k1_before
+        resumed = load(JournalStorage(JournalFileBackend(journal)))  # a new process's storage object
+        k1_before = k1_count()
+        resume_s, resume_phases, resume_c, resume_g = scan_run(
+            "resumed", lambda: optimize_scan(resumed, objective, RESUME_TRIALS, resume=True, **kwargs)
+        )
+        k1_resume = k1_count() - k1_before
+        twin = load(sqlite_url)
+        k1_before = k1_count()
+        twin_s, twin_phases, _, twin_g = scan_run("twin", lambda: optimize_scan(twin, objective, RESUME_TRIALS, **kwargs))
+        k1_twin = k1_count() - k1_before
+        resumed_trials = load(JournalStorage(JournalFileBackend(journal))).get_trials(deepcopy=False)[RESUME_HISTORY:]
+        twin_trials = twin.get_trials(deepcopy=False)[RESUME_HISTORY:]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    told = [t for t in resumed_trials if t.state.is_finished() and checkpoint.OP_TOKEN_ATTR in t.system_attrs
+            and checkpoint.STRANDED_ATTR not in t.system_attrs]
+    tokens = [t.system_attrs[checkpoint.OP_TOKEN_ATTR] for t in resumed_trials if checkpoint.OP_TOKEN_ATTR in t.system_attrs]
+    running = sum(t.state == ot.TrialState.RUNNING for t in resumed_trials)
+    if len(told) != RESUME_TRIALS or running or len(tokens) != len(set(tokens)):
+        fail(f"resume: {len(told)} budget-consuming tells (expected {RESUME_TRIALS}), {running} RUNNING, "
+             f"{len(tokens) - len(set(tokens))} op tokens told twice")
+    if resume_c.get("checkpoint.restore", 0) != 1 or resume_c.get("checkpoint.fallback", 0):
+        fail(f"resume: checkpoint counters {resume_c}, expected one restore and no fallback")
+    got = [(t.params, t.values) for t in resumed_trials if t.state == ot.TrialState.COMPLETE]
+    want = [(t.params, t.values) for t in twin_trials if t.state == ot.TrialState.COMPLETE]
+    if len(want) != RESUME_TRIALS or got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        fail(f"resume: the resumed study parts from its twin at trial {first} ({len(got)} and {len(want)} COMPLETE)")
+
+    def chunks(phases):
+        return int(phases.get("scan.chunk", {}).get("count", 0))
+
+    def swaps(g):
+        return int(g.get("device.gp.inducing_swaps.total", 0))
+
+    # The killed run dispatched its third chunk and died syncing the second,
+    # so the device stats hold its first two chunks only. The third chunk's
+    # swap-ins are the twin's total less those two chunks' (the killed run's
+    # first chunks are the twin's: the trial equality above holds them).
+    want_k1 = {
+        "killed": chunks(kill_phases) + swaps(kill_g) + (swaps(twin_g) - swaps(kill_g)),
+        "resumed": chunks(resume_phases) + swaps(resume_g),
+        "twin": chunks(twin_phases) + swaps(twin_g),
+    }
+    got_k1 = {"killed": k1_kill, "resumed": k1_resume, "twin": k1_twin}
+    if (chunks(kill_phases), chunks(resume_phases), chunks(twin_phases)) != (3, 2, 3) or got_k1 != want_k1:
+        fail(f"resume: K1 launched {got_k1}, expected {want_k1} (chunks and swap-ins from the device stats)")
+    restore_s = resume_phases.get("ckpt.restore", {}).get("total_s", 0.0)
+    print(
+        f"phase 32, preempt and resume config #2's scan (Hartmann-20D, {RESUME_HISTORY} seeded + {RESUME_TRIALS}, "
+        f"sync_every {RESUME_SYNC}, m 256, bucket 2048): seeding {seed_s['journal']:.3f} s journal file / "
+        f"{seed_s['sqlite']:.3f} s sqlite; killed run {kill_s:.3f} s ({chunks(kill_phases)} chunks, killed at tell "
+        f"{RESUME_KILL_AT + 1}); resume {resume_s:.3f} s ({chunks(resume_phases)} chunks; restore {restore_s:.4f} s: "
+        f"load, validate, classify, reap); twin on sqlite {twin_s:.3f} s ({chunks(twin_phases)} chunks); "
+        f"{len(told)} tells, {sum(bool(t.system_attrs.get(checkpoint.STRANDED_ATTR)) for t in resumed_trials)} "
+        f"strays reaped, the twin's trials and values; K1 {sum(got_k1.values())} = {got_k1}; best "
+        f"{twin.best_value:.6f}"
+    )
+    return {"k1": sum(got_k1.values()), "seed_s": seed_s, "restore_s": restore_s, "runs_s": (kill_s, resume_s, twin_s)}
+
+
 def main() -> None:
     try:
         import torch
@@ -3241,6 +3395,13 @@ def main() -> None:
     gp_batches = phase_gp_batches(k1_count)
     gp_batch_counts = counts()
     print(f"batch phases 29-31: {time.perf_counter() - t_batch:.1f} s, set-up and checks included")
+    t_resume = time.perf_counter()
+    reset()
+    resume = phase_resume(k1_count)
+    resume_counts = counts()
+    print(f"resume phase 32: {time.perf_counter() - t_resume:.1f} s, set-up and checks included")
+    if resume_counts["matern52_gram"] != resume["k1"] or any(v for k, v in resume_counts.items() if k != "matern52_gram"):
+        fail(f"phase 32 launched {resume_counts}, expected K1 {resume['k1']} and no other kernel")
     if any(batch_counts.values()):
         fail(f"phases 29-30 launched kernels of the repo: {batch_counts}")
     if gp_batch_counts["matern52_gram"] != GP_BATCHES or any(v for k, v in gp_batch_counts.items() if k != "matern52_gram"):
@@ -3255,7 +3416,7 @@ def main() -> None:
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
-        + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"],
+        + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"] + resume_counts["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
@@ -3271,7 +3432,8 @@ def main() -> None:
         f"NSGA-II workers); slicing and HSSP {hssp_counts}; NSGA-III {nsga3_counts}; MOTPE DTLZ2 {motpe3_counts}; "
         f"GP phases 25-28: K1 {gp_rest['matern52_gram']} = chain {chain['sparse']['k1']} + batch "
         f"{chain['sparse']['k1_batch']}, running {running['sparse']['k1']}, constraints "
-        f"{constrained[4000]['k1']}, LogEHVI 0; phase 31: K1 {gp_batches['k1']} over {GP_BATCHES} batches)"
+        f"{constrained[4000]['k1']}, LogEHVI 0; phase 31: K1 {gp_batches['k1']} over {GP_BATCHES} batches; "
+        f"phase 32: K1 {resume['k1']} over the killed, resumed and twin scans)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -3287,7 +3449,7 @@ def main() -> None:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
     paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
-             batch_counts, gp_batch_counts)
+             batch_counts, gp_batch_counts, resume_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -3319,6 +3481,7 @@ def main() -> None:
         f"LogEHVI ZDT1 {float(np.median(mo_gp['ZDT1']['s'])):.3f} / DTLZ2 {float(np.median(mo_gp['DTLZ2']['s'])):.3f} "
         f"s/ask, config #5 {mlp5['trials_per_s'][0]:.1f} trials/s ({mlp5['gflops']:.1f} GFLOP/s in a "
         f"{mlp5['batch_ms']:.3f} ms batch), GP batches of {GP_BATCH} {gp_batches['s'] / GP_BATCHES:.3f} s, "
+        f"scan resume {resume['runs_s'][1]:.3f} s (restore {resume['restore_s']:.4f} s), "
         f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,11 @@
 """optuna_tpu_torch — the PyTorch/CUDA port of ``optuna_tpu``.
 
-The port runs beside the JAX package, which stays the reference. Five
-paths are ported, on in-memory storage (with the retrying and caching
-wrappers, heartbeats and retry callbacks) and the study runtime around
-them (``n_jobs`` threads, the progress bar, study management, the Grid,
-BruteForce and PartialFixed samplers, ``GuardedSampler``):
+The port runs beside the JAX package, which stays the reference. Six
+paths are ported, on in-memory or durable storage (RDB over sqlite3, a
+journal file or Redis; the retrying and caching wrappers, heartbeats and
+retry callbacks) and the study runtime around them (``n_jobs`` threads,
+the progress bar, study management, the Grid, BruteForce and PartialFixed
+samplers, ``GuardedSampler``, ``FixedTrial``):
 
 * **TPE**: ``TPESampler``, the default sampler of a single-objective
   study (univariate, multivariate and group, constant liar, constraints,
@@ -20,7 +21,8 @@ BruteForce and PartialFixed samplers, ``GuardedSampler``):
   ``QMCSampler``;
 * **scan**: ``Study.optimize_scan`` / ``parallel.optimize_scan``, the
   device-resident ask → evaluate → tell loop over a batched objective
-  (``parallel.VectorizedObjective``), exact and SGPR chunks;
+  (``parallel.VectorizedObjective``), exact and SGPR chunks, resumable
+  after a kill from the checkpoint ring (``resume=True``);
 * **batched trials**: ``Study.ask_batch`` and ``parallel.optimize_vectorized``
   (``ResilientBatchExecutor``: quarantine, bisection, OOM halving, the
   dispatch deadline), B trials a dispatch of a batched objective, such as
@@ -51,9 +53,11 @@ from optuna_tpu_torch.study import (
     get_all_study_summaries,
     load_study,
 )
-from optuna_tpu_torch.trial import FrozenTrial, Trial, TrialState, create_trial
+from optuna_tpu_torch.trial import FixedTrial, FrozenTrial, Trial, TrialState, create_trial
+from optuna_tpu_torch.version import __version__
 
 __all__ = [
+    "FixedTrial",
     "FrozenTrial",
     "Study",
     "StudyDirection",
@@ -61,6 +65,7 @@ __all__ = [
     "Trial",
     "TrialPruned",
     "TrialState",
+    "__version__",
     "copy_study",
     "create_study",
     "create_trial",

@@ -58,6 +58,12 @@ _H6_P = 1e-4 * np.array(
 )
 
 
+def hartmann6(trial) -> float:
+    x = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(6)])
+    inner = np.sum(_H6_A * (x[None, :] - _H6_P) ** 2, axis=1)
+    return float(-np.sum(_H6_ALPHA * np.exp(-inner)))
+
+
 def hartmann6_np(x: np.ndarray) -> np.ndarray:
     """Batched Hartmann-6 over the first six columns of ``x`` (n, >=6)."""
     x6 = np.asarray(x, dtype=np.float64)[:, :6]

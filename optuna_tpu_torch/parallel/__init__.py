@@ -10,7 +10,7 @@
   power-of-two device buckets, the ask -> evaluate -> tell cycle as one
   chunk program per ``sync_every`` trials with O(n^2) incremental Cholesky
   tells (O(m^2) above the exact-size threshold), storage synced once per
-  chunk.
+  chunk, the carry checkpointed after each sync for ``resume=True``.
 
 The pod tier (``parallel/sharded.py``, ``parallel/ici_journal.py``,
 ``PodFollowerStorage``, ``optimize_sharded``) waits for ROADMAP A8a.

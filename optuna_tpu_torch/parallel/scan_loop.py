@@ -83,9 +83,19 @@ bypassed. The decode on the device mirrors the host ``unnormalize_one``
 (step snapping included) in f32: the objective sees the device decode,
 storage records the host f64 decode of the same point.
 
-Not ported yet: ``resume=True`` and the checkpoint ring (ROADMAP A8), the
-health and autopilot hooks (A11). ``study._scan_gp_control`` holds the live
-large-n thresholds and is re-read at every chunk.
+**Preemption resume.** After every chunk sync the loop writes the carry
+that re-dispatches the next chunk into the ``ckpt:scan:*`` ring
+(:mod:`optuna_tpu_torch.checkpoint`): the bucket, the history buffers, the
+cursor, the warm start, the inducing buffers, the draw seed, the chunk
+index and the host RNG's state, each realized to NumPy after the sync (no
+host read is added inside a chunk). ``optimize_scan(resume=True)`` rebuilds
+that carry and re-runs the interrupted chunk, which repeats its draws
+because they depend only on ``(key_seed, chunk_idx)``; the op tokens skip
+what the dead run told and adopt its token-stamped RUNNING strays.
+
+Not ported yet: the health and autopilot hooks (ROADMAP A11).
+``study._scan_gp_control`` holds the live large-n thresholds and is re-read
+at every chunk.
 """
 
 from __future__ import annotations
@@ -603,9 +613,21 @@ def optimize_scan(
     to a power of two). The thresholds live in ``study._scan_gp_control``
     and are re-read at every chunk.
 
+    **Preemption resume.** With ``resume=True``, ``n_trials`` is the
+    study's *total* tell budget: the loop first reaps RUNNING strays a dead
+    process left behind, then rebuilds the device carry from the newest
+    valid ``ckpt:scan:*`` blob (written after every chunk sync) and re-runs
+    the interrupted chunk with the same draws, skipping ops the dead run
+    already told, so an uninterrupted twin and a kill-then-resume run land
+    on the same trials. When no blob survives validation (counted
+    ``checkpoint.fallback``), the loop degrades to its ordinary
+    recompute-from-COMPLETE-history warm start with the already-synced tells
+    still counted against the budget. The ``seed`` / ``sync_every`` of the
+    original call must be passed again; a ``sync_every`` or search-space
+    mismatch rejects the blob.
+
     Runs on ``device`` (``cuda`` unless ``device="cpu"``; with no GPU it
-    raises). ``resume=True`` (restore from the checkpoint ring) is not
-    ported yet and raises ``NotImplementedError``.
+    raises).
     """
     from optuna_tpu_torch.study._study_direction import StudyDirection
 
@@ -618,11 +640,6 @@ def optimize_scan(
     if len(study.directions) != 1:
         raise ValueError("optimize_scan supports single-objective studies only.")
     _validate_space(objective.search_space)
-    if resume:
-        raise NotImplementedError(
-            "optimize_scan(resume=True) restores from the checkpoint ring, which "
-            "optuna_tpu_torch does not port yet (ROADMAP.md item A8)."
-        )
     device = resolve_device(device)
     if study._thread_local.in_optimize_loop:
         raise RuntimeError("Nested invocation of `optimize_scan` isn't allowed.")
@@ -651,6 +668,7 @@ def optimize_scan(
             maximize=study.direction == StudyDirection.MAXIMIZE,
             control=control,
             device=device,
+            resume=resume,
         )
     finally:
         study._thread_local.in_optimize_loop = False
@@ -679,76 +697,151 @@ def _run_scan(
     maximize: bool,
     control: dict,
     device: torch.device,
+    resume: bool = False,
 ) -> None:
     space_dict = objective.search_space
     space = SearchSpace(space_dict)
     d = space.dim
     dev = _device_space(objective, space, n_preliminary_samples, device)
     rng = np.random.RandomState(seed)
-    # A fresh run claims the next run id, so its op tokens never collide
-    # with an earlier incarnation's.
-    run_id = _ckpt.synced_ops(study._get_trials(deepcopy=False, use_cache=True)).max_run_id + 1
+    storage = study._storage
 
-    # Start from any COMPLETE history over this space, direction-applied and
-    # clipped to the f32-safe score.
-    prior = [
-        t
-        for t in study._get_trials(deepcopy=False, states=(TrialState.COMPLETE,), use_cache=True)
-        if all(p in t.params for p in space_dict)
-    ]
-    if prior:
-        X_hist = space.normalize([t.params for t in prior]).astype(np.float32)
-        vals = np.asarray([t.value for t in prior])
-        scores = _clip_scores(vals if maximize else -vals)
-    else:
-        X_hist = np.zeros((0, d), dtype=np.float32)
-        scores = np.zeros((0,), dtype=np.float32)
-
-    # ------------------------------------------------------ random startup
+    # Exactly-once bookkeeping: a resume classifies the history's op tokens
+    # and validates the newest checkpoint; a fresh run claims the next run
+    # id, so its op tokens never collide with an earlier incarnation's.
     told = 0
-    n_startup = max(0, min(n_startup_trials - len(prior), n_trials))
-    if n_startup:
-        x0 = space.sample_normalized(n_startup, seed=int(rng.randint(0, 2**31 - 1))).astype(np.float32)
-        startup = _startup_program(objective, space)
-        with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"):
-            vals0, fins0 = startup(torch.as_tensor(x0, device=device))
-            vals0 = vals0.cpu().numpy()
-            fins0 = fins0.cpu().numpy()
-        _sync_results(
-            study, space, space_dict, x0, vals0, fins0, callbacks,
-            ops=[_ckpt.op_token(run_id, "s", i) for i in range(n_startup)],
-        )
-        told = n_startup
-        keep = fins0
-        if keep.any():
-            X_hist = np.concatenate([X_hist, x0[keep]])
-            scores = np.concatenate([scores, _clip_scores(vals0[keep] if maximize else -vals0[keep])])
-        if study._stop_flag or told >= n_trials:
+    resume_state = None
+    ledger: _ResumeLedger | None = None
+    if resume:
+        with telemetry.span("ckpt.restore"):
+            resume_state, ledger, run_id, told = _restore_scan(
+                study, space_dict, sync_every=sync_every
+            )
+    else:
+        run_id = _ckpt.synced_ops(study._get_trials(deepcopy=False, use_cache=True)).max_run_id + 1
+    ckpt_seq = _ckpt.max_slot_seq(storage, study._study_id, "scan") + 1
+
+    if resume_state is None:
+        # Start from any COMPLETE history over this space, direction-applied
+        # and clipped to the f32-safe score.
+        prior = [
+            t
+            for t in study._get_trials(deepcopy=False, states=(TrialState.COMPLETE,), use_cache=True)
+            if all(p in t.params for p in space_dict)
+        ]
+        if prior:
+            X_hist = space.normalize([t.params for t in prior]).astype(np.float32)
+            vals = np.asarray([t.value for t in prior])
+            scores = _clip_scores(vals if maximize else -vals)
+        else:
+            X_hist = np.zeros((0, d), dtype=np.float32)
+            scores = np.zeros((0,), dtype=np.float32)
+
+        # -------------------------------------------------- random startup
+        n_startup = max(0, min(n_startup_trials - len(prior), n_trials - told))
+        if n_startup:
+            x0 = space.sample_normalized(n_startup, seed=int(rng.randint(0, 2**31 - 1))).astype(np.float32)
+            startup = _startup_program(objective, space)
+            with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"):
+                vals0, fins0 = startup(torch.as_tensor(x0, device=device))
+                vals0 = vals0.cpu().numpy()
+                fins0 = fins0.cpu().numpy()
+            _sync_results(
+                study, space, space_dict, x0, vals0, fins0, callbacks,
+                ops=[_ckpt.op_token(run_id, "s", i) for i in range(n_startup)],
+                ledger=ledger,
+            )
+            told += n_startup
+            keep = fins0
+            if keep.any():
+                X_hist = np.concatenate([X_hist, x0[keep]])
+                scores = np.concatenate([scores, _clip_scores(vals0[keep] if maximize else -vals0[keep])])
+            if study._stop_flag or told >= n_trials:
+                return
+
+        # -------------------------------------------- device bucket setup
+        n_hist = len(X_hist)
+        bucket = _bucket(n_hist + sync_every)
+        Xb = torch.zeros((bucket, d), dtype=torch.float32, device=device)
+        yb = torch.zeros((bucket,), dtype=torch.float32, device=device)
+        mb = torch.zeros((bucket,), dtype=torch.float32, device=device)
+        if n_hist:
+            Xb[:n_hist] = torch.as_tensor(X_hist, device=device)
+            yb[:n_hist] = torch.as_tensor(scores, device=device)
+            mb[:n_hist] = 1.0
+        n_dev = n_hist
+        n_upper = n_hist  # bound on the cursor (quarantines may lag it)
+        key_seed = int(rng.randint(0, 2**31 - 1))
+        warm_raw = None  # the previous chunk's fitted raw params
+        chunk_idx = 0
+        Zb = zyb = zmb = None  # inducing buffers, once the history first goes sparse
+        m_pad = 0
+    else:
+        # --------------------------------------- carry restore (checkpoint)
+        # Rebuild the loop-top state the dead process stashed: the
+        # interrupted chunk re-runs on the same buffers, bucket, inducing
+        # set and draws, so its re-told slots are the dead run's slots and
+        # the ledger can skip them.
+        st = resume_state
+
+        def _on_device(a):
+            return None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        bucket = int(st["bucket"])
+        Xb, yb, mb = _on_device(st["X"]), _on_device(st["y"]), _on_device(st["m"])
+        n_dev = int(st["n_dev"])
+        n_upper = int(st["n_upper"])
+        key_seed = int(st["key_seed"])
+        warm_raw = _on_device(st["warm_raw"])
+        chunk_idx = int(st["chunk_idx"])
+        rng.set_state(st["rng_state"])
+        m_pad = int(st["m_pad"])
+        Zb, zyb, zmb = _on_device(st["Z"]), _on_device(st["zy"]), _on_device(st["zm"])
+        if told >= n_trials:
             return
 
-    # ------------------------------------------------ device bucket setup
-    n_hist = len(X_hist)
-    bucket = _bucket(n_hist + sync_every)
-    Xb = torch.zeros((bucket, d), dtype=torch.float32, device=device)
-    yb = torch.zeros((bucket,), dtype=torch.float32, device=device)
-    mb = torch.zeros((bucket,), dtype=torch.float32, device=device)
-    if n_hist:
-        Xb[:n_hist] = torch.as_tensor(X_hist, device=device)
-        yb[:n_hist] = torch.as_tensor(scores, device=device)
-        mb[:n_hist] = 1.0
-    n_dev = n_hist
-    n_upper = n_hist  # bound on the cursor (quarantines may lag it)
-    key_seed = int(rng.randint(0, 2**31 - 1))
-    warm_raw = None  # the previous chunk's fitted raw params
-    chunk_idx = 0
-    Zb = zyb = zmb = None  # inducing buffers, once the history first goes sparse
-    m_pad = 0
     default_start = np.zeros(d + 2, dtype=np.float32)
     default_start[d + 1] = np.log(1e-2)
     n_cand = _N_INCUMBENTS + dev.sobol_base.shape[0]
-    pending: tuple | None = None  # (chunk, n_tell, ops)
+    pending: tuple | None = None  # (chunk, n_tell, ops, n_new)
+
+    def _stash_carry() -> dict:
+        """The loop-top carry as a checkpointable dict, captured before this
+        iteration changes anything (bucket growth, RNG draws, inducing
+        reseed, chunk index): the state that re-dispatches chunk
+        ``chunk_idx``. The chunk programs never write their input tensors,
+        so the stash holds references; :func:`_write_scan_checkpoint`
+        realizes them once the previous chunk's tells are synced."""
+        return {
+            "param_names": tuple(space_dict),
+            "sync_every": int(sync_every),
+            "run_id": int(run_id),
+            "bucket": int(bucket),
+            "n_upper": int(n_upper),
+            "chunk_idx": int(chunk_idx),
+            "key_seed": int(key_seed),
+            "rng_state": rng.get_state(),
+            "X": Xb,
+            "y": yb,
+            "m": mb,
+            "n_dev": int(n_dev),
+            "warm_raw": warm_raw,
+            "Z": Zb,
+            "zy": zyb,
+            "zm": zmb,
+            "m_pad": int(m_pad),
+        }
+
+    # First durable point: a death during chunk 0 or 1 (before the first
+    # chunk-sync write) restores from here instead of falling back.
+    _write_scan_checkpoint(storage, study._study_id, _stash_carry(), told=told, seq=ckpt_seq)
+    ckpt_seq += 1
+    dup_counts = ledger.dup_counts if ledger is not None else {}
     remaining = n_trials - told
     while remaining > 0 and not study._stop_flag:
+        # The loop-top carry, durable once this iteration syncs the pending
+        # chunk.
+        carry_stash = _stash_carry()
         if n_upper + sync_every > bucket:
             # Bucket crossing: copy the buffers into the next power of two.
             bucket = _bucket(n_upper + sync_every)
@@ -793,52 +886,91 @@ def _run_scan(
                 )
         Xb, yb, mb, n_dev, warm_raw = out.X, out.y, out.mask, out.n, out.raw
         n_upper += sync_every
-        n_tell = min(sync_every, remaining)
-        remaining -= n_tell
+        # Budget algebra with resume dups: ops of this chunk the dead run
+        # already told re-run with the same draws but are skipped at tell
+        # time, so they ride inside n_tell without consuming new budget.
+        dups = dup_counts.pop(this_chunk, 0) if dup_counts else 0
+        n_tell = min(sync_every, remaining + dups)
+        remaining -= n_tell - dups
         if pending is not None:
-            _sync_chunk(study, space, space_dict, pending, callbacks)
+            _sync_chunk(study, space, space_dict, pending, callbacks, ledger)
+            told += pending[3]
             if study._stop_flag:
                 return
-        pending = (out, n_tell, [_ckpt.op_token(run_id, this_chunk, i) for i in range(n_tell)])
+            # The pending chunk's tells are durable: persist the loop-top
+            # stash (the state that re-dispatches this iteration's chunk).
+            _write_scan_checkpoint(storage, study._study_id, carry_stash, told=told, seq=ckpt_seq)
+            ckpt_seq += 1
+        pending = (
+            out, n_tell, [_ckpt.op_token(run_id, this_chunk, i) for i in range(n_tell)], n_tell - dups
+        )
 
     if pending is not None and not study._stop_flag:
-        _sync_chunk(study, space, space_dict, pending, callbacks)
+        exit_stash = _stash_carry()
+        _sync_chunk(study, space, space_dict, pending, callbacks, ledger)
+        told += pending[3]
+        if not study._stop_flag:
+            # Terminal checkpoint: a resume of a finished study restores
+            # this, finds the budget spent and returns without a chunk.
+            _write_scan_checkpoint(storage, study._study_id, exit_stash, told=told, seq=ckpt_seq)
 
 
-def _sync_chunk(study, space, space_dict, pending, callbacks) -> None:
+def _sync_chunk(study, space, space_dict, pending, callbacks, ledger=None) -> None:
     """Read one finished chunk back to the host, publish its device stats
     and commit its trials."""
-    out, n_tell, ops = pending
+    out, n_tell, ops, _n_new = pending
     with torch.profiler.record_function(_TRACE_SYNC), telemetry.span("scan.sync"):
         xs_np = out.xs[:n_tell].cpu().numpy()
         vals_np = out.vals[:n_tell].cpu().numpy()
         _publish_chunk(out.stats)
         _sync_results(
-            study, space, space_dict, xs_np, vals_np, out.finites[:n_tell], callbacks, ops=ops
+            study, space, space_dict, xs_np, vals_np, out.finites[:n_tell], callbacks,
+            ops=ops, ledger=ledger,
         )
 
 
-def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops) -> None:
+def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, ledger=None) -> None:
     """Commit one chunk's results: create the trials (one storage batch),
     stamp each with its op token, pin its params to the evaluated point and
     tell COMPLETE/FAIL: the logical end state the per-trial path leaves. A
     mid-loop error (or ``Study.stop()`` from a callback) fails the
-    not-yet-told remainder instead of stranding it RUNNING."""
+    not-yet-told remainder instead of stranding it RUNNING.
+
+    On a resumed re-run chunk ``ledger`` filters the slots: ops the dead run
+    already told are skipped (never re-told, no new trial row), and its
+    token-stamped RUNNING strays are adopted: told into the existing trial
+    instead of a duplicate."""
     if len(xs) == 0:
         return
     storage = study._storage
-    trial_ids = storage.create_new_trials(study._study_id, len(xs))
+    # Plan each slot before touching storage: (slot index, token, adopted
+    # trial id or None). Already-told ops drop out of the plan.
+    plan = []
+    for i in range(len(xs)):
+        token = ops[i]
+        if ledger is not None:
+            if token in ledger.told:
+                continue
+            plan.append((i, token, ledger.running.pop(token, None)))
+        else:
+            plan.append((i, token, None))
+    if not plan:
+        return
+    n_new = sum(1 for _, _, tid in plan if tid is None)
+    new_ids = iter(storage.create_new_trials(study._study_id, n_new) if n_new else ())
     study._thread_local.cached_all_trials = None
-    trials = [Trial(study, tid) for tid in trial_ids]
+    trials = [Trial(study, tid if tid is not None else next(new_ids)) for _, _, tid in plan]
     j = 0
     try:
         for j, trial in enumerate(trials):
             if study._stop_flag:
                 break
+            i, token, _adopted = plan[j]
             # Token before tell: a death in between leaves a token-stamped
-            # RUNNING stray a resume can adopt.
-            storage.set_trial_system_attr(trial._trial_id, _ckpt.OP_TOKEN_ATTR, ops[j])
-            params = space.unnormalize_one(xs[j])
+            # RUNNING stray a resume adopts; a death before leaves a
+            # tokenless stray a resume reaps.
+            storage.set_trial_system_attr(trial._trial_id, _ckpt.OP_TOKEN_ATTR, token)
+            params = space.unnormalize_one(xs[i])
             # Pin the evaluated point as the trial's relative proposal so
             # _suggest records it under its distributions without touching
             # the (bypassed) sampler.
@@ -846,15 +978,15 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops) -
             trial.relative_params = params
             for name, dist in space_dict.items():
                 trial._suggest(name, dist)
-            if bool(fins[j]):
-                frozen = study.tell(trial, float(vals[j]))
+            if bool(fins[i]):
+                frozen = study.tell(trial, float(vals[i]))
             else:
                 telemetry.count("executor.quarantine")
                 try:
                     storage.set_trial_system_attr(
                         trial._trial_id,
                         "fail_reason",
-                        f"non-finite objective value {vals[j]!r} quarantined "
+                        f"non-finite objective value {vals[i]!r} quarantined "
                         "(scan loop, isfinite verdict)",
                     )
                 except Exception as err:  # the reason attr is diagnostics; the FAIL tell below must run
@@ -865,7 +997,7 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops) -
                 frozen = study.tell(trial, state=TrialState.FAIL)
                 _logger.warning(
                     f"Trial {trial.number} failed: non-finite objective value "
-                    f"{vals[j]!r} quarantined by the scan loop."
+                    f"{vals[i]!r} quarantined by the scan loop."
                 )
             for callback in callbacks:
                 callback(study, frozen)
@@ -879,6 +1011,130 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops) -
     except Exception:  # a storage error mid-sync must not strand the chunk's trials RUNNING
         _fail_remaining(study, trials[j:], "scan chunk sync aborted before this trial was told")
         raise
+
+
+class _ResumeLedger:
+    """Exactly-once resume bookkeeping, consulted at every chunk sync."""
+
+    __slots__ = ("told", "running", "dup_counts")
+
+    def __init__(self, told, running, dup_counts) -> None:
+        #: Op tokens the dead run durably told: never re-told.
+        self.told = frozenset(told)
+        #: Token -> trial id of the dead run's adoptable RUNNING strays.
+        self.running = dict(running)
+        #: Chunk index -> told-op count past the checkpoint watermark: the
+        #: budget to refund when that chunk is re-dispatched.
+        self.dup_counts = dict(dup_counts)
+
+
+def _restore_scan(study, space_dict, *, sync_every):
+    """Resume bookkeeping (trust-but-verify): classify the history's op
+    tokens, reap unidentifiable strays, and validate the newest scan
+    checkpoint against this study's configuration and synced watermark.
+
+    Returns ``(state, ledger, run_id, told)``. ``state`` is the restored
+    carry dict, or None: the caller falls back to its ordinary
+    recompute-from-COMPLETE-history warm start (counted
+    ``checkpoint.fallback``) under a fresh run id. Either way no
+    already-synced op is re-told, and no stray stays RUNNING.
+    """
+    storage = study._storage
+    ops = _ckpt.synced_ops(study.get_trials(deepcopy=False))
+    rec = _ckpt.load_checkpoint(
+        storage,
+        study._study_id,
+        "scan",
+        synced_told=len(ops.told),
+        # The 2-slot ring means the newest *valid* blob can trail the
+        # synced history by up to two write intervals (a torn newest slot
+        # hands the older slot the win); beyond that it is stale.
+        max_lag=2 * sync_every,
+    )
+    state = rec.state if rec is not None else None
+    if state is not None and (
+        tuple(state.get("param_names", ())) != tuple(space_dict)
+        or int(state.get("sync_every", 0)) != int(sync_every)
+    ):
+        telemetry.count("checkpoint.rejected")
+        _logger.warning(
+            "Scan checkpoint was written under a different search space or "
+            "sync_every; rejecting it and recomputing from COMPLETE history."
+        )
+        state = None
+    if state is not None:
+        run_id = int(state["run_id"])
+        chunk_floor = int(state["chunk_idx"])
+        # Told ops of this run at or after the restored chunk landed past
+        # the watermark: the re-run chunks regenerate them with the same
+        # draws, so they are skipped at tell time and refunded at dispatch.
+        dup_counts: dict[int, int] = {}
+        for token in ops.told:
+            parsed = _ckpt.parse_op_token(token)
+            if parsed is None or parsed[0] != run_id or parsed[1] is None:
+                continue
+            if parsed[1] >= chunk_floor:
+                dup_counts[parsed[1]] = dup_counts.get(parsed[1], 0) + 1
+        told = int(state["told"]) + sum(dup_counts.values())
+        adoptable: dict[str, int] = {}
+        reap = list(ops.stranded)
+        for token, tid in ops.running.items():
+            parsed = _ckpt.parse_op_token(token)
+            if parsed is not None and parsed[0] == run_id:
+                adoptable[token] = tid
+            else:
+                reap.append(tid)
+        ledger = _ResumeLedger(ops.told, adoptable, dup_counts)
+        _logger.info(
+            f"Resuming scan run {run_id} from checkpoint seq {rec.seq}: "
+            f"re-dispatching from chunk {chunk_floor} with {told} tells "
+            f"already synced ({sum(dup_counts.values())} past the watermark "
+            "will be re-run and skipped, not re-told)."
+        )
+    else:
+        telemetry.count("checkpoint.fallback")
+        run_id = ops.max_run_id + 1
+        told = len(ops.told)
+        reap = list(ops.stranded) + list(ops.running.values())
+        ledger = _ResumeLedger(ops.told, {}, {})
+        _logger.warning(
+            f"No usable scan checkpoint; resuming as run {run_id} via the "
+            f"recompute-from-COMPLETE-history path ({told} synced tells "
+            "already count against the budget)."
+        )
+    _reap_strays(
+        study, reap, reason="stranded RUNNING stray from a preempted scan run, reaped at resume"
+    )
+    return state, ledger, run_id, told
+
+
+def _reap_strays(study, trial_ids, *, reason: str) -> None:
+    """FAIL out RUNNING strays a dead process left behind, marked
+    ``ckpt:stranded`` so resume budget accounting excludes them."""
+    storage = study._storage
+    for tid in trial_ids:
+        try:
+            storage.set_trial_system_attr(tid, _ckpt.STRANDED_ATTR, True)
+            storage.set_trial_system_attr(tid, "fail_reason", reason)
+            storage.set_trial_state_values(tid, state=TrialState.FAIL)
+        except Exception as err:  # reaping is best-effort cleanup; a later resume retries a stray left RUNNING
+            _logger.warning(f"reaping stranded trial id {tid} raised {err!r}; continuing.")
+    if trial_ids:
+        study._thread_local.cached_all_trials = None
+
+
+def _write_scan_checkpoint(storage, study_id, stash, *, told: int, seq: int) -> None:
+    """Persist one loop-top carry stash into the ``ckpt:scan:*`` ring.
+
+    Device tensors are realized to NumPy here, always after the chunk that
+    produced them was synced, so no host read lands inside a chunk. The blob
+    holds only plain types and NumPy arrays."""
+    state = dict(stash)
+    state["told"] = int(told)
+    for field in ("X", "y", "m", "warm_raw", "Z", "zy", "zm"):
+        if state[field] is not None:
+            state[field] = state[field].detach().cpu().numpy()
+    _ckpt.write_checkpoint(storage, study_id, "scan", state, n_told=told, seq=seq)
 
 
 def _fail_remaining(study, trials, reason: str) -> None:

@@ -1,9 +1,12 @@
-"""Storages package (port of ``optuna_tpu/storages/__init__.py``).
+"""Storages package: URL -> backend dispatch (port of
+``optuna_tpu/storages/__init__.py``; reference
+``optuna/storages/__init__.py:22-55``).
 
-The in-memory backend and the storage wrappers: the retrying wrapper, the
-read cache, the heartbeat machinery and the failed-trial retry callbacks.
-The RDB, journal and gRPC backends wait for ROADMAP A8, so a storage URL
-raises.
+The in-memory backend, the relational backend over ``sqlite3`` (with the
+MySQL and PostgreSQL dialects over any DB-API driver), the journal backends
+(file and Redis), and the storage wrappers: the retrying wrapper, the read
+cache, the heartbeat machinery and the failed-trial retry callbacks. The
+gRPC proxy waits for ROADMAP A9, so a ``grpc://`` URL raises.
 """
 
 from __future__ import annotations
@@ -26,8 +29,15 @@ from optuna_tpu_torch.storages._retry import (
 
 __all__ = [
     "BaseHeartbeat",
+    "BaseJournalLogStorage",
     "BaseStorage",
     "InMemoryStorage",
+    "JournalFileOpenLock",
+    "JournalFileStorage",
+    "JournalFileSymlinkLock",
+    "JournalRedisStorage",
+    "JournalStorage",
+    "RDBStorage",
     "RetryFailedTrialCallback",
     "RetryHeartbeatStaleTrialCallback",
     "RetryPolicy",
@@ -38,16 +48,61 @@ __all__ = [
     "get_storage",
 ]
 
+_LAZY = {
+    # Deprecated drop-in names from the reference (pre-journal-package API).
+    "BaseJournalLogStorage": ("optuna_tpu_torch.storages.journal._base", "BaseJournalBackend"),
+    "JournalFileStorage": ("optuna_tpu_torch.storages.journal._file", "JournalFileBackend"),
+    "JournalRedisStorage": ("optuna_tpu_torch.storages.journal._redis", "JournalRedisBackend"),
+    "JournalFileOpenLock": ("optuna_tpu_torch.storages.journal._file", "JournalFileOpenLock"),
+    "JournalFileSymlinkLock": ("optuna_tpu_torch.storages.journal._file", "JournalFileSymlinkLock"),
+    "journal": ("optuna_tpu_torch.storages.journal", None),
+    "RDBStorage": ("optuna_tpu_torch.storages._rdb.storage", "RDBStorage"),
+    "JournalStorage": ("optuna_tpu_torch.storages.journal", "JournalStorage"),
+    "JournalFileBackend": ("optuna_tpu_torch.storages.journal", "JournalFileBackend"),
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        mod = importlib.import_module(module)
+        return mod if attr is None else getattr(mod, attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 def get_storage(storage: Union[None, str, BaseStorage]) -> BaseStorage:
-    """Resolve a storage spec: None -> fresh in-memory; a storage passes through."""
+    """Resolve a storage spec: None -> fresh in-memory; URL string -> backend.
+
+    RDB URLs are wrapped in ``_CachedStorage`` exactly as the reference does
+    (``optuna/storages/__init__.py:41-55``).
+    """
     if storage is None:
         return InMemoryStorage()
+    if isinstance(storage, str):
+        if storage.startswith(
+            ("sqlite://", "rdb://", "mysql://", "mysql+", "postgresql://",
+             "postgresql+", "postgres://", "postgres+")
+        ):
+            from optuna_tpu_torch.storages._rdb.storage import RDBStorage
+
+            return _CachedStorage(RDBStorage(storage))
+        if storage.startswith("journal://") or storage.endswith(".journal"):
+            from optuna_tpu_torch.storages.journal import JournalFileBackend, JournalStorage
+
+            path = storage[len("journal://"):] if storage.startswith("journal://") else storage
+            return JournalStorage(JournalFileBackend(path))
+        if storage.startswith("grpc://"):
+            raise NotImplementedError(
+                f"Storage URL {storage!r}: the gRPC storage proxy is not ported yet "
+                "(ROADMAP.md item A9)."
+            )
+        raise ValueError(f"Unrecognized storage URL: {storage!r}")
     if isinstance(storage, BaseStorage):
         return storage
-    if isinstance(storage, str):
-        raise NotImplementedError(
-            f"Storage URL {storage!r}: only in-memory storage is ported so far "
-            "(ROADMAP.md item A8)."
-        )
     raise ValueError(f"Unsupported storage type: {type(storage)!r}")
+
+
+def __dir__() -> list[str]:
+    return sorted(set(globals()) | set(_LAZY))

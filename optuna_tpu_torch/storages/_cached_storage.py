@@ -1,6 +1,6 @@
 """Per-process read cache over a remote-ish storage (port of
-``optuna_tpu/storages/_cached_storage.py``; the RDB and gRPC backends it
-wraps in the reference wait for ROADMAP A8, so here it wraps any storage).
+``optuna_tpu/storages/_cached_storage.py``): ``get_storage`` wraps the RDB
+storage in it, and it wraps any other storage too.
 
 Parity target: ``optuna/storages/_cached_storage.py:22-36`` — finished trials
 are immutable, so they are cached forever; unfinished trial ids are tracked
@@ -170,8 +170,8 @@ class _CachedStorage(BaseStorage, BaseHeartbeat):
     # -------------------------------------------------------------- heartbeat
     # Delegated when the backend has heartbeats; "heartbeat disabled"
     # otherwise, as ``_ForwardingStorage`` does. The reference wraps only
-    # heartbeat backends (RDB, gRPC); until those are ported (ROADMAP A8)
-    # the port wraps ``InMemoryStorage``, which has none.
+    # heartbeat backends (RDB, gRPC); the port also wraps backends without
+    # heartbeats, such as ``InMemoryStorage``.
 
     def record_heartbeat(self, trial_id: int) -> None:
         if hasattr(self._backend, "record_heartbeat"):

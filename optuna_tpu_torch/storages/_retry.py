@@ -18,9 +18,9 @@ layer shares:
 * :class:`TransientStorageError` — the marker type backends and fault
   injectors raise for retry-safe faults.
 
-In the reference the gRPC proxy and the journal file locks reuse
-:class:`RetryPolicy` as well; those backends are not ported yet (ROADMAP
-A8).
+The journal file locks reuse the same jittered-backoff schedule for lock
+acquisition. (In the reference the gRPC proxy uses :class:`RetryPolicy`
+too; the proxy is ROADMAP A9.)
 """
 
 from __future__ import annotations

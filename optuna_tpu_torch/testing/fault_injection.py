@@ -21,8 +21,17 @@
   runs out of memory, kills or hangs chosen dispatches of a batched
   objective, and :class:`FakeResourceExhaustedError` is the OOM stand-in.
 
-The journal, device-stat, pod, health, hub-fleet, lease and checkpoint
-chaos of the reference wait for ROADMAP A8, A8a, A9 and A11.
+* Preemption and journal chaos (:mod:`optuna_tpu_torch.checkpoint` and the
+  scan loop's resume are the layers under test): :class:`CheckpointChaosPlan`
+  kills a scan study mid-chunk-sync and resumes it
+  (:data:`CHECKPOINT_CHAOS_MATRIX` maps every loop checkpoint event to its
+  scenario), :func:`tear_journal_tail` leaves the torn record a crash
+  mid-append leaves, and :func:`plant_stale_lock` the lockfile a killed
+  worker leaves.
+
+The device-stat, pod, health, hub-fleet and lease chaos of the reference,
+and the checkpoint matrix's ``warm_load`` row (a hub re-home), wait for
+ROADMAP A8a, A9 and A11.
 
 Typical chaos test::
 
@@ -38,6 +47,7 @@ Typical chaos test::
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -533,3 +543,115 @@ FALLBACK_CHAOS_POLICIES: dict[str, str] = {
     "raise": "inject sampler raise; the error surfaces to the caller after "
     "the fallback attr is recorded",
 }
+
+
+# -------------------------------------------------------- preemption chaos
+
+
+#: The preemption scenario for every checkpoint event a loop counts
+#: (``checkpoint.CHECKPOINT_EVENTS`` less ``warm_load``, the serve tier's
+#: hub re-home, which comes with ROADMAP A9).
+CHECKPOINT_CHAOS_MATRIX: dict[str, str] = {
+    "write": "run a scan study over a journal storage; every chunk sync (and the startup "
+    "sync) leaves a CRC-framed blob in the ckpt: ring and bumps the write counter",
+    "write_error": "blip set_study_system_attr under FaultInjectorStorage exactly when the "
+    "checkpoint write lands; the loop continues uncheckpointed and the error is counted",
+    "restore": "kill the loop mid-chunk-sync (SimulatedWorkerDeath in-process); "
+    "optimize_scan(resume=True) rebuilds the carry from the newest valid blob and "
+    "reaches the fault-free twin's trials",
+    "rejected": "garble a ring slot (bad base64 / torn CRC / wrong schema version) before "
+    "the resume; the blob is skipped and counted, the surviving slot (or fallback) serves",
+    "stale": "plant a valid blob whose n_told watermark trails the synced history by more "
+    "than one write interval; the resume skips it as stale and recomputes",
+    "fallback": "garble every ring slot; the resume counts the fallback, recomputes the "
+    "carry from COMPLETE history, and still finishes the exact remaining budget",
+}
+
+
+@dataclass(frozen=True)
+class CheckpointChaosPlan:
+    """One deterministic preemption chaos scenario: a scan study over a
+    durable (journal) storage, a kill mid-chunk-sync after
+    :attr:`preempt_after_tells` budget-consuming tells, and a relaunch with
+    ``optimize_scan(resume=True)``, with the outcome the acceptance test
+    asserts: the resumed study completes exactly ``n_trials``
+    budget-consuming tells, no trial is left RUNNING, no op token is told
+    twice, and the trials equal the uninterrupted same-seed twin's. The
+    corrupt-blob leg garbles :attr:`corrupt_slots` of the ``ckpt:`` ring
+    before the resume and asserts every garbled blob is rejected and
+    counted and the study still completes through the
+    recompute-from-history fallback.
+
+    ``preempt_after_tells`` lands *inside* a chunk sync (neither 0 nor a
+    multiple of ``sync_every``): a chunk half-told at death exercises the
+    dup-skip (already-told ops) and the adoption (token-stamped RUNNING
+    strays) in the same resumed chunk.
+    """
+
+    n_trials: int = 96
+    sync_every: int = 8
+    n_startup_trials: int = 8
+    seed: int = 11
+    #: Budget-consuming tells after which the kill strikes: mid-chunk by
+    #: construction (see the class docstring).
+    preempt_after_tells: int = 44
+    #: Ring slots to garble before the resume in the corrupt-blob leg.
+    corrupt_slots: tuple[int, ...] = (0, 1)
+
+    @property
+    def preempt_chunk(self) -> int:
+        """The chunk index the kill lands in (0-based, after startup)."""
+        return (self.preempt_after_tells - self.n_startup_trials) // self.sync_every
+
+
+def checkpoint_chaos_plan() -> CheckpointChaosPlan:
+    """The default :class:`CheckpointChaosPlan`: kill a 96-trial scan study
+    44 tells in (mid-chunk), resume, and compare to the uninterrupted twin."""
+    return CheckpointChaosPlan()
+
+
+def tear_journal_tail(file_path: str, keep_bytes: int = 7) -> int:
+    """Truncate the journal's final record mid-line: a crash during append.
+
+    Keeps ``keep_bytes`` bytes of the last record (no trailing newline), the
+    on-disk state a power cut between ``write`` and ``fsync`` leaves behind.
+    Returns the number of bytes removed. No-op (returns 0) on an empty file.
+    """
+    with open(file_path, "rb+") as f:
+        data = f.read()
+        if not data:
+            return 0
+        body = data.rstrip(b"\n")
+        last_nl = body.rfind(b"\n")
+        record_start = last_nl + 1  # 0 when the file holds a single record
+        keep = min(record_start + keep_bytes, len(body) - 1 if len(body) else 0)
+        f.truncate(keep)
+        removed = len(data) - keep
+    _logger.info(f"tore {removed} bytes off the journal tail of {file_path}")
+    return removed
+
+
+def plant_stale_lock(file_path: str, age_s: float = 3600.0, *, flavor: str = "symlink") -> str:
+    """Create the lockfile a killed worker would leave: already held, with
+    an mtime ``age_s`` seconds in the past so grace-period takeover applies.
+
+    ``flavor`` matches the two lock primitives in
+    :mod:`optuna_tpu_torch.storages.journal._file`: ``"symlink"``
+    (JournalFileSymlinkLock) or ``"open"`` (JournalFileOpenLock).
+    Returns the lockfile path.
+    """
+    from optuna_tpu_torch.storages.journal._file import LOCK_FILE_SUFFIX
+
+    lockfile = file_path + LOCK_FILE_SUFFIX
+    if flavor == "symlink":
+        os.symlink(file_path, lockfile)
+        stamp = time.time() - age_s
+        os.utime(lockfile, (stamp, stamp), follow_symlinks=False)
+    elif flavor == "open":
+        fd = os.open(lockfile, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        os.close(fd)
+        stamp = time.time() - age_s
+        os.utime(lockfile, (stamp, stamp))
+    else:
+        raise ValueError(f"Unknown lock flavor {flavor!r} (want 'symlink' or 'open').")
+    return lockfile

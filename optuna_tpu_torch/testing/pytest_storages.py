@@ -15,8 +15,8 @@ third-party backends) can run against their implementation:
 Covers study CRUD and naming, directions, attrs, trial lifecycle and
 immutability rules, param/distribution round-trips, the claim CAS,
 intermediate values, filtered reads, best-trial semantics, convenience
-getters, incremental partial reads, cross-thread number uniqueness and the
-op-token attrs. The in-repo run lives in ``tests/test_torch_storages.py``.
+getters, incremental partial reads, cross-thread number uniqueness, the
+checkpoint ring and the op-token attrs. The in-repo run lives in ``tests/test_torch_storages.py``.
 """
 
 from __future__ import annotations
@@ -329,17 +329,63 @@ class StorageTestCase:
         with pytest.raises(KeyError):
             storage.get_trial(987654321)
 
-    # ----------------------------------------------------- op-token attrs
-    # The loops stamp synced trials with op tokens (``checkpoint.py``)
-    # through the plain trial-system-attr surface. The reference's
-    # checkpoint-blob and lease cases (``test_checkpoint_round_trip``,
-    # ``test_checkpoint_newest_slot_wins_ring_bounded``,
-    # ``test_checkpoint_corrupt_newest_falls_back_to_older``,
-    # ``test_checkpoint_future_watermark_rejected``,
-    # ``test_retry_clone_fixed_params_survive_checkpointed_study``,
-    # ``test_lease_record_round_trip_and_epoch_monotonic``,
-    # ``test_lease_stale_epoch_write_rejected``) come back with the
-    # checkpoint blobs and the fleet leases (ROADMAP A8).
+    # -------------------------------------------- checkpoint attr namespace
+    # The preemption checkpoints (``checkpoint.py``) persist through the
+    # plain study-system-attr surface, so the ``ckpt:`` namespace is part of
+    # the storage contract: every backend must round-trip the framed blobs,
+    # keep the two-slot ring bounded, and never clobber neighboring system
+    # attrs, including under injected transient faults. The reference's two
+    # lease cases (``test_lease_record_round_trip_and_epoch_monotonic``,
+    # ``test_lease_stale_epoch_write_rejected``) come back with the fleet
+    # leases (ROADMAP A9).
+
+    def test_checkpoint_round_trip(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+
+        sid = storage.create_new_study(MINIMIZE)
+        state = {"told": 3, "x": [1.0, 2.0], "names": ("a", "b")}
+        ckpt.write_checkpoint(storage, sid, "scan", state, n_told=3, seq=0)
+        rec = ckpt.load_checkpoint(storage, sid, "scan")
+        assert rec is not None
+        assert (rec.kind, rec.seq, rec.n_told) == ("scan", 0, 3)
+        assert rec.state["x"] == [1.0, 2.0]
+        assert rec.state["names"] == ("a", "b")
+        # Kinds are independent namespaces.
+        assert ckpt.load_checkpoint(storage, sid, "hub") is None
+
+    def test_checkpoint_newest_slot_wins_ring_bounded(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+
+        sid = storage.create_new_study(MINIMIZE)
+        for seq in range(5):
+            ckpt.write_checkpoint(storage, sid, "scan", {"echo": seq}, n_told=seq, seq=seq)
+        rec = ckpt.load_checkpoint(storage, sid, "scan")
+        assert rec is not None and rec.seq == 4 and rec.state["echo"] == 4
+        keys = [k for k in storage.get_study_system_attrs(sid) if k.startswith(ckpt.CKPT_ATTR_PREFIX)]
+        # Bounded ring: five writes leave exactly RING_SLOTS keys, not five.
+        assert len(keys) == ckpt.RING_SLOTS
+        assert ckpt.max_slot_seq(storage, sid, "scan") == 4
+
+    def test_checkpoint_corrupt_newest_falls_back_to_older(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+
+        sid = storage.create_new_study(MINIMIZE)
+        ckpt.write_checkpoint(storage, sid, "scan", {"n": 6}, n_told=6, seq=6)
+        ckpt.write_checkpoint(storage, sid, "scan", {"n": 7}, n_told=7, seq=7)
+        slot = 7 % ckpt.RING_SLOTS
+        storage.set_study_system_attr(sid, f"{ckpt.CKPT_ATTR_PREFIX}scan:{slot}", "!not-base64!")
+        rec = ckpt.load_checkpoint(storage, sid, "scan")
+        assert rec is not None and rec.seq == 6 and rec.state["n"] == 6
+
+    def test_checkpoint_future_watermark_rejected(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+
+        sid = storage.create_new_study(MINIMIZE)
+        ckpt.write_checkpoint(storage, sid, "scan", {}, n_told=10, seq=0)
+        # A checkpoint claiming MORE synced tells than the storage holds is
+        # from a future the storage never saw: refused, not trusted.
+        assert ckpt.load_checkpoint(storage, sid, "scan", synced_told=4) is None
+        assert ckpt.load_checkpoint(storage, sid, "scan", synced_told=10) is not None
 
     def test_checkpoint_op_token_round_trip(self, storage: BaseStorage) -> None:
         from optuna_tpu_torch import checkpoint as ckpt
@@ -353,6 +399,38 @@ class StorageTestCase:
         assert token in ops.told
         assert ops.max_run_id == 2
         assert ckpt.parse_op_token(token) == (2, 5, 1)
+
+    def test_retry_clone_fixed_params_survive_checkpointed_study(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+
+        sid = storage.create_new_study(MINIMIZE)
+        dist = FloatDistribution(0.0, 1.0)
+        tid = storage.create_new_trial(sid)
+        storage.set_trial_param(tid, "x", 0.25, dist)
+        storage.set_trial_state_values(tid, TrialState.FAIL)
+        clone = FrozenTrial(
+            number=-1,
+            state=TrialState.WAITING,
+            value=None,
+            datetime_start=None,
+            datetime_complete=None,
+            params={"x": 0.25},
+            distributions={"x": dist},
+            user_attrs={},
+            system_attrs={"failed_trial": 0, "retry_history": [0], "fixed_params": {"x": 0.25}},
+            intermediate_values={},
+            trial_id=-1,
+        )
+        clone_id = storage.create_new_trial(sid, template_trial=clone)
+        # A mid-study checkpoint lands in the same study attr table; the
+        # retry lineage must survive beside it, unclobbered, at resume.
+        ckpt.write_checkpoint(storage, sid, "scan", {"told": 1}, n_told=1, seq=0)
+        got = storage.get_trial(clone_id)
+        assert got.system_attrs["fixed_params"] == {"x": 0.25}
+        assert got.system_attrs["retry_history"] == [0]
+        assert got.system_attrs["failed_trial"] == 0
+        rec = ckpt.load_checkpoint(storage, sid, "scan")
+        assert rec is not None and rec.n_told == 1
 
     # ------------------------------------------------ end-to-end over a Study
 

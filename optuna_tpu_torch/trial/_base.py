@@ -1,8 +1,8 @@
 """Abstract trial interface (reference ``optuna/trial/_base.py:22``).
 
 Library code should accept ``BaseTrial`` wherever a concrete trial flavour
-(live :class:`Trial`, snapshot :class:`FrozenTrial`; the reference's
-``FixedTrial`` is not ported yet) can appear — e.g. objective functions, which the
+(live :class:`Trial`, offline :class:`FixedTrial`, snapshot
+:class:`FrozenTrial`) can appear — e.g. objective functions, which the
 reference types as ``Callable[[BaseTrial], float]``."""
 
 from __future__ import annotations
@@ -68,8 +68,9 @@ class BaseTrial(abc.ABC):
 
 
 def _register_concrete_trials() -> None:
+    from optuna_tpu_torch.trial._fixed import FixedTrial
     from optuna_tpu_torch.trial._frozen import FrozenTrial
     from optuna_tpu_torch.trial._trial import Trial
 
-    for cls in (Trial, FrozenTrial):
+    for cls in (Trial, FixedTrial, FrozenTrial):
         BaseTrial.register(cls)

@@ -149,15 +149,15 @@ def reference_cma_draws(monkeypatch):
     monkeypatch.setattr(cmaes, "ask_draws", jax_cma_draws)
 
 
-# ----------------------------------------------- heartbeats without a database
+# ------------------------------------------- heartbeats the test can steer
 
 
 def heartbeat_storage(pkg, interval=60, failed_trial_callback=None):
-    """An in-memory storage of ``pkg`` with the heartbeat mixin, standing in
-    for the reference tests' RDB storage (the port has no RDB yet): beats
-    are counted per trial, and the trials named in ``stale`` are stale while
-    RUNNING, as a dead worker's are once its beats age past the grace
-    period."""
+    """An in-memory storage of ``pkg`` with the heartbeat mixin, for tests
+    that count beats or choose which trials are stale (tests that follow a
+    reference test over RDB use ``RDBStorage``): beats are counted per
+    trial, and the trials named in ``stale`` are stale while RUNNING, as a
+    dead worker's are once its beats age past the grace period."""
 
     class HeartbeatStorage(pkg.storages.InMemoryStorage, pkg.storages.BaseHeartbeat):
         def __init__(self) -> None:
@@ -193,3 +193,97 @@ def join_abandoned_dispatches():
     for thread in threading.enumerate():
         if thread.name == "optuna-tpu-dispatch":
             thread.join(timeout=30.0)
+
+
+# --------------------------------------------- storages: one op sequence, two packages
+
+
+def run_op_sequence(pkg, storage, seed: int) -> dict:
+    """Drive ``storage`` (a storage of ``pkg``) through one op sequence drawn
+    from ``RandomState(seed)``: two studies, their attrs, and trials in
+    every state with params of each distribution, intermediate values
+    (NaN and ±inf among them) and attrs. Returns the first study's fields
+    and trials as the storage reads them back."""
+    rng = np.random.RandomState(seed)
+    dists = pkg.distributions
+    SD = pkg.study.StudyDirection
+    TS = pkg.trial.TrialState
+    directions = [[SD.MINIMIZE], [SD.MAXIMIZE], [SD.MINIMIZE, SD.MAXIMIZE]][rng.randint(3)]
+    name = f"ops-{seed}"
+    sid = storage.create_new_study(directions, study_name=name)
+    other = storage.create_new_study([SD.MINIMIZE], study_name=f"other-{seed}")
+    storage.set_study_user_attr(sid, "lr", float(rng.uniform()))
+    storage.set_study_user_attr(sid, "tags", ["a", int(rng.randint(100))])
+    storage.set_study_system_attr(sid, "note", "seeded")
+    space = {
+        "f": dists.FloatDistribution(-3.0, 3.0),
+        "lg": dists.FloatDistribution(1e-5, 1.0, log=True),
+        "st": dists.FloatDistribution(0.0, 1.0, step=0.125),
+        "i": dists.IntDistribution(1, 64, step=3),
+        "c": dists.CategoricalDistribution(["a", 7, None, 2.5]),
+    }
+    specials = [float("nan"), float("inf"), -float("inf")]
+    for k in range(8):
+        if k % 4 == 3:
+            tid = storage.create_new_trial(
+                sid, template_trial=pkg.trial.create_trial(state=TS.WAITING, params={}, distributions={})
+            )
+        else:
+            tid = storage.create_new_trial(sid)
+        storage.create_new_trial(other)
+        for pname, dist in space.items():
+            if rng.uniform() < 0.8:
+                if isinstance(dist, dists.CategoricalDistribution):
+                    internal = float(rng.randint(len(dist.choices)))
+                elif isinstance(dist, dists.IntDistribution):
+                    internal = float(dist.low + dist.step * rng.randint((dist.high - dist.low) // dist.step + 1))
+                elif dist.step is not None:
+                    internal = float(dist.step * rng.randint(9))
+                else:
+                    internal = float(np.exp(rng.uniform(np.log(dist.low), np.log(dist.high))) if dist.log else rng.uniform(dist.low, dist.high))
+                storage.set_trial_param(tid, pname, internal, dist)
+        for step in range(rng.randint(4)):
+            value = specials[step] if rng.uniform() < 0.3 else float(rng.normal())
+            storage.set_trial_intermediate_value(tid, step, value)
+        storage.set_trial_user_attr(tid, "k", int(k))
+        storage.set_trial_system_attr(tid, "ckpt:op", f"r0:c{k}:0")
+        state = [TS.COMPLETE, TS.FAIL, TS.PRUNED, TS.RUNNING, TS.COMPLETE][rng.randint(5)]
+        if state != TS.RUNNING or k % 4 == 3:
+            values = [float(rng.normal()) for _ in directions] if state == TS.COMPLETE else None
+            if k % 4 == 3:
+                storage.set_trial_state_values(tid, TS.RUNNING)
+            storage.set_trial_state_values(tid, state, values)
+    return {
+        "study_name": name,
+        "directions": [d.name for d in directions],
+        "study_user_attrs": storage.get_study_user_attrs(sid),
+        "study_system_attrs": storage.get_study_system_attrs(sid),
+        "trials": storage.get_all_trials(sid),
+    }
+
+
+def _same_float(a, b) -> bool:
+    return (a is None and b is None) or (a is not None and b is not None and (a == b or (a != a and b != b)))
+
+
+def assert_same_trials(a: dict, b: dict) -> None:
+    """Every ``FrozenTrial`` field of two read-backs equal (NaN equal to NaN,
+    distributions by their JSON form, datetimes by presence)."""
+    ta, tb = a["trials"], b["trials"]
+    assert len(ta) == len(tb)
+    for x, y in zip(ta, tb):
+        assert (x.number, x.state.name) == (y.number, y.state.name)
+        assert (x.values is None) == (y.values is None)
+        if x.values is not None:
+            assert x.values == y.values
+        assert x.params == y.params
+        json_x = {k: type(d).__name__ + repr(sorted(vars(d).items())) for k, d in x.distributions.items()}
+        json_y = {k: type(d).__name__ + repr(sorted(vars(d).items())) for k, d in y.distributions.items()}
+        assert json_x == json_y
+        assert x.user_attrs == y.user_attrs
+        assert x.system_attrs == y.system_attrs
+        assert sorted(x.intermediate_values) == sorted(y.intermediate_values)
+        for step, v in x.intermediate_values.items():
+            assert _same_float(v, y.intermediate_values[step]), (step, v, y.intermediate_values[step])
+        assert (x.datetime_start is None) == (y.datetime_start is None)
+        assert (x.datetime_complete is None) == (y.datetime_complete is None)

@@ -1,0 +1,114 @@
+"""The port's public surface covers the reference's.
+
+Each ported package's ``__all__`` (top level, ``trial``, ``gp``, ``models``,
+``samplers``, ``storages``, ``parallel``) holds every name of the
+reference's, except the names that open ROADMAP items still own: those are
+listed below, each tagged with its item, and each must really be missing
+(a name that lands leaves the list). Every exported name resolves.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+
+#: Reference names the port does not export yet, by package, tagged with the
+#: ROADMAP item that owns each.
+NOT_YET: dict[str, dict[str, str]] = {
+    "": {
+        "terminator": "A10",
+        "importance": "A10",
+        "visualization": "A10",
+        "artifacts": "A10",
+        "cli": "A10",
+        "integration": "A10",
+    },
+    "trial": {},
+    "gp": {},
+    "models": {
+        # The port has hartmann6_torch / hartmann20_torch instead; the *_jax
+        # variants are not queued.
+        "branin_jax": "not queued",
+        "hartmann6_jax": "not queued",
+        "rastrigin_jax": "not queued",
+    },
+    "samplers": {"ThinClientSampler": "A9"},
+    "storages": {"GrpcStorageProxy": "A9", "run_grpc_proxy_server": "A9"},
+    "parallel": {
+        name: "A8a"
+        for name in (
+            "IciJournalBackend",
+            "PodFollowerStorage",
+            "ShardedBatchExecutor",
+            "ShardedObjective",
+            "build_study_mesh",
+            "make_shard_and_gather_fns",
+            "match_partition_rules",
+            "mesh_worker_id",
+            "optimize_sharded",
+        )
+    },
+}
+
+
+def _modules(sub: str):
+    suffix = f".{sub}" if sub else ""
+    return importlib.import_module("optuna_tpu" + suffix), importlib.import_module("optuna_tpu_torch" + suffix)
+
+
+@pytest.mark.parametrize("sub", sorted(NOT_YET), ids=lambda s: s or "top")
+def test_all_covers_the_references_but_for_tagged_items(sub):
+    ref, port = _modules(sub)
+    missing = set(ref.__all__) - set(port.__all__)
+    assert missing == set(NOT_YET[sub])
+
+
+@pytest.mark.parametrize("sub", sorted(NOT_YET), ids=lambda s: s or "top")
+def test_every_exported_name_resolves(sub):
+    _, port = _modules(sub)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+
+
+def test_the_repaired_names_import():
+    from optuna_tpu_torch import FixedTrial, __version__
+    from optuna_tpu_torch.gp import GPParams, GPState, ScaleType, SearchSpace, fit_gp, posterior
+    from optuna_tpu_torch.gp.gp import fit_gp as fit_gp_impl
+    from optuna_tpu_torch.models import hartmann6
+    from optuna_tpu_torch.trial import BaseTrial
+
+    import optuna_tpu
+
+    assert __version__ == optuna_tpu.__version__
+    assert fit_gp is fit_gp_impl
+    assert all(x is not None for x in (GPParams, GPState, ScaleType, SearchSpace, posterior))
+    assert isinstance(FixedTrial({}), BaseTrial)
+    point = {f"x{i}": 0.1 * (i + 1) for i in range(6)}
+    assert hartmann6(FixedTrial(point)) == optuna_tpu.models.hartmann6(optuna_tpu.trial.FixedTrial(point))
+
+
+def test_fixed_trial_matches_the_reference():
+    import optuna_tpu
+    import optuna_tpu_torch
+
+    def objective(trial):
+        x = trial.suggest_float("x", -1.0, 1.0)
+        n = trial.suggest_int("n", 1, 9, step=2)
+        c = trial.suggest_categorical("c", ["a", "b"])
+        trial.report(x, 0)
+        trial.set_user_attr("u", 1)
+        assert not trial.should_prune()
+        return x * n + (c == "b")
+
+    params = {"x": 0.5, "n": 7, "c": "b"}
+    ref = optuna_tpu.trial.FixedTrial(dict(params), number=3)
+    port = optuna_tpu_torch.FixedTrial(dict(params), number=3)
+    assert objective(port) == objective(ref)
+    assert port.params == ref.params and port.number == ref.number == 3
+    assert port.user_attrs == ref.user_attrs
+    assert {k: repr(d) for k, d in port.distributions.items()} == {k: repr(d) for k, d in ref.distributions.items()}
+    with pytest.raises(ValueError, match="not found"):
+        port.suggest_float("missing", 0.0, 1.0)
+    with pytest.raises(ValueError, match="out of"):
+        optuna_tpu_torch.FixedTrial({"x": 5.0}).suggest_float("x", 0.0, 1.0)

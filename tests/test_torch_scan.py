@@ -12,13 +12,13 @@ telemetry's zero allocations (without the flight recorder) and a disabled
 run. From ``tests/test_gp_sparse.py``: NaN never enters the inducing set,
 the sparse stats report the regime, the sparse steady state has zero full
 refits, the storage contract through the sparse switch. New here:
-``resume=True`` raises, ``device=None`` raises with no GPU, every synced
-trial carries its op token.
+``resume=True`` on a study without a checkpoint falls back and runs,
+``device=None`` raises with no GPU, every synced trial carries its op
+token. The RDB and journal storage contracts (``:78``, ``:95``) run here
+too, over sqlite and a journal file.
 
 Not ported, and why:
 
-* the RDB and journal storage contracts (``:78``, ``:95``): the port has
-  in-memory storage only until ROADMAP A8;
 * the flight-recorder lifecycle (``:419``): the flight recorder is A11;
 * the compile-count bound (``:378``): nothing is compiled here;
 * the per-trial race (``:480``): a wall-clock comparison, slow-marked in
@@ -117,6 +117,33 @@ def test_scan_study_matches_per_trial_storage_contract_in_memory():
     _scan(study, _hartmann_objective(), 30, sync_every=8, n_startup_trials=8, seed=0)
     _assert_per_trial_path_state(study, 30, SPACE6)
     assert study.best_value < -1.0  # the GP actually optimizes
+
+
+def test_scan_study_contract_on_rdb(tmp_path):
+    from optuna_tpu_torch.storages import RDBStorage
+
+    storage = RDBStorage(f"sqlite:///{tmp_path}/scan.db")
+    study = ot.create_study(storage=storage, sampler=RandomSampler(seed=0))
+    _scan(study, _hartmann_objective(), 14, sync_every=6, n_startup_trials=6, seed=0)
+    _assert_per_trial_path_state(study, 14, SPACE6)
+    # The logical state survives a reload through the storage.
+    reloaded = ot.load_study(study_name=study.study_name, storage=storage, sampler=RandomSampler(seed=0))
+    _assert_per_trial_path_state(reloaded, 14, SPACE6)
+
+
+def test_scan_study_contract_on_journal(tmp_path):
+    from optuna_tpu_torch.storages import JournalFileBackend, JournalStorage
+
+    storage = JournalStorage(JournalFileBackend(str(tmp_path / "scan.log")))
+    study = ot.create_study(storage=storage, sampler=RandomSampler(seed=0))
+    _scan(study, _hartmann_objective(), 14, sync_every=6, n_startup_trials=6, seed=0)
+    _assert_per_trial_path_state(study, 14, SPACE6)
+    replay = ot.load_study(
+        study_name=study.study_name,
+        storage=JournalStorage(JournalFileBackend(str(tmp_path / "scan.log"))),
+        sampler=RandomSampler(seed=0),
+    )
+    _assert_per_trial_path_state(replay, 14, SPACE6)
 
 
 def test_mixed_space_decodes_on_the_device_and_records_valid_params():
@@ -218,8 +245,14 @@ def test_nested_invocation_raises():
 
 
 def test_resume_is_not_ported_yet_and_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        _scan(_study(), _hartmann_objective(), 4, resume=True)
+    """``resume=True`` is ported now and no longer raises: on a study with no
+    checkpoint it counts the fallback and runs the whole budget. (The
+    resume contract itself is ``tests/test_torch_checkpoint.py``.)"""
+    _record()
+    study = _study()
+    _scan(study, _hartmann_objective(), 4, sync_every=2, n_startup_trials=2, seed=0, resume=True)
+    assert [t.state for t in study.trials] == [TrialState.COMPLETE] * 4
+    assert telemetry.snapshot()["counters"]["checkpoint.fallback"] == 1
 
 
 def test_default_device_raises_without_a_gpu(monkeypatch):

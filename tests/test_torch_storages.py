@@ -337,13 +337,17 @@ def test_forwarding_wrappers_degrade_heartbeats_on_a_heartbeatless_backend():
         storage.remove_session()
 
 
-def test_get_storage_keeps_urls_for_the_backends_slice():
-    from optuna_tpu_torch.storages import get_storage
+def test_get_storage_keeps_urls_for_the_backends_slice(tmp_path):
+    from optuna_tpu_torch.storages import RDBStorage, get_storage
 
     storage = InMemoryStorage()
     assert get_storage(storage) is storage
     assert isinstance(get_storage(None), InMemoryStorage)
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_storage("sqlite:///study.db")
+    # The RDB and journal URLs resolve (tests/test_torch_journal.py runs
+    # them); the gRPC proxy's waits for its slice.
+    rdb = get_storage(f"sqlite:///{tmp_path / 'study.db'}")
+    assert isinstance(rdb, _CachedStorage) and isinstance(rdb._backend, RDBStorage)
+    with pytest.raises(NotImplementedError, match="A9"):
+        get_storage("grpc://localhost:13000")
     with pytest.raises(ValueError):
         get_storage(3)

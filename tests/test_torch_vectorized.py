@@ -252,7 +252,7 @@ def test_ask_batch_one_commit_semantics(monkeypatch):
     assert _rows(port) == _rows(ref)
 
 
-def test_ask_batch_init_error_fails_and_requeues_every_claimed_trial():
+def test_ask_batch_init_error_fails_and_requeues_every_claimed_trial(tmp_path):
     """An error while initializing the batch FAILs every trial claimed or
     created (with the reason), fires the storage's failed-trial callback
     (the claimed WAITING clone is enqueued again), then re-raises."""
@@ -263,7 +263,10 @@ def test_ask_batch_init_error_fails_and_requeues_every_claimed_trial():
                 if trial.number == 2:
                     raise RuntimeError("before_trial exploded")
 
-        storage = heartbeat_storage(pkg, failed_trial_callback=pkg.storages.RetryFailedTrialCallback())
+        storage = pkg.storages.RDBStorage(
+            f"sqlite:///{tmp_path}/{pkg.__name__}.db", heartbeat_interval=60, grace_period=120,
+            failed_trial_callback=pkg.storages.RetryFailedTrialCallback(),
+        )
         study = pkg.create_study(storage=storage, sampler=Exploding(seed=0))
         study.enqueue_trial({"x": 0.5})
         with warnings.catch_warnings():
@@ -381,9 +384,12 @@ def test_no_heartbeat_thread_on_heartbeat_less_storage(monkeypatch):
     assert all(t.state == TrialState.COMPLETE for t in study.trials)
 
 
-def test_heartbeat_storage_still_gets_the_batch_thread(monkeypatch):
+def test_heartbeat_storage_still_gets_the_batch_thread(monkeypatch, tmp_path):
     spy = _Spy(monkeypatch)
-    study = optuna_tpu_torch.create_study(storage=heartbeat_storage(optuna_tpu_torch), sampler=RandomSampler(seed=0))
+    storage = optuna_tpu_torch.storages.RDBStorage(
+        f"sqlite:///{tmp_path}/hb.db", heartbeat_interval=60, grace_period=120
+    )
+    study = optuna_tpu_torch.create_study(storage=storage, sampler=RandomSampler(seed=0))
     optimize_vectorized(study, _fast_objective(), n_trials=8, batch_size=4, device="cpu")
     assert spy.constructed == 2  # one shared thread a batch
     assert all(t.state == TrialState.COMPLETE for t in study.trials)

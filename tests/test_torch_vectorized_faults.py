@@ -7,9 +7,9 @@ proved against injected faults: non-finite quarantine under ``fail``,
 under the ``RetryPolicy`` backoff and probationary regrowth; the dispatch
 deadline, also around the host read that waits for the device; a killed
 worker's batch reaped by a survivor and drained to the fault-free result;
-``Study.stop()`` mid-batch. The reference's RDB storage is replaced by an
-in-memory heartbeat storage (``tests/_torch_port.py::heartbeat_storage``),
-whose ``stale`` set stands in for aged heartbeat rows.
+``Study.stop()`` mid-batch. The heartbeat cases run on the port's RDB
+storage over sqlite, as the reference's do, with the dead worker's beats
+aged in the ``trial_heartbeats`` table.
 
 Beyond the reference's cases: the port's out-of-memory error type
 (``torch.OutOfMemoryError``) halves as the text rule does, and a device
@@ -50,7 +50,7 @@ from optuna_tpu_torch.testing.fault_injection import (
 )
 from optuna_tpu_torch.trial._frozen import create_trial
 from optuna_tpu_torch.trial._state import TrialState
-from tests._torch_port import heartbeat_storage, join_abandoned_dispatches, one_torch_thread  # noqa: F401
+from tests._torch_port import join_abandoned_dispatches, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread", "join_abandoned_dispatches")
 optuna_tpu_torch.logging.set_verbosity(optuna_tpu_torch.logging.ERROR)
@@ -728,15 +728,18 @@ def test_retry_callback_strips_executor_attrs_but_keeps_lineage():
     assert clone.system_attrs["fixed_params"] == {"x": 0.5}
 
 
-def test_executor_writes_prefixed_dispatch_bookkeeping():
-    storage = heartbeat_storage(optuna_tpu_torch)
+def test_executor_writes_prefixed_dispatch_bookkeeping(tmp_path):
+    storage = optuna_tpu_torch.storages.RDBStorage(
+        f"sqlite:///{tmp_path}/hb.db", heartbeat_interval=60, grace_period=120
+    )
     study = optuna_tpu_torch.create_study(storage=storage, sampler=RandomSampler(seed=0))
     optimize_vectorized(study, VectorizedObjective(_quad, SPACE), n_trials=8, batch_size=4)
     for trial in study.trials:
         record = trial.system_attrs[EXECUTOR_ATTR_PREFIX + "dispatch"]
         assert 0 <= record["slot"] < 4
         assert "/" in record["batch"]
-        assert storage.beats[trial._trial_id] >= 1
+    beats = storage._conn().execute("SELECT trial_id FROM trial_heartbeats").fetchall()
+    assert {row[0] for row in beats} == {t._trial_id for t in study.trials}
     tags = {t.system_attrs[EXECUTOR_ATTR_PREFIX + "dispatch"]["batch"] for t in study.trials}
     assert len(tags) == 2
 
@@ -748,7 +751,7 @@ def test_executor_writes_prefixed_dispatch_bookkeeping():
 # -------------------------------------------------- the acceptance scenario
 
 
-def test_chaos_study_with_kill_reap_and_drain_converges_exactly():
+def test_chaos_study_with_kill_reap_and_drain_converges_exactly(tmp_path):
     """NaN trials, one mid-batch crash and one worker death in one study.
     After a survivor's reap and a drain over the enqueued clones: nothing
     RUNNING, every healthy trial COMPLETE once, the best value the
@@ -757,7 +760,10 @@ def test_chaos_study_with_kill_reap_and_drain_converges_exactly():
     optimize_vectorized(clean, VectorizedObjective(_quad, SPACE), n_trials=24, batch_size=8)
     clean_values = sorted(t.value for t in clean.trials)
 
-    storage = heartbeat_storage(optuna_tpu_torch, failed_trial_callback=RetryFailedTrialCallback(max_retry=2))
+    storage = optuna_tpu_torch.storages.RDBStorage(
+        f"sqlite:///{tmp_path}/vchaos.db", heartbeat_interval=60, grace_period=120,
+        failed_trial_callback=RetryFailedTrialCallback(max_retry=2),
+    )
     study = optuna_tpu_torch.create_study(study_name="vchaos", storage=storage, sampler=RandomSampler(seed=9))
     # batch 0 = dispatch 0 (NaN at slot 2); batch 1 = dispatch 1 (transient
     # crash; halves 2 and 3); batch 2 = dispatch 4 (worker death).
@@ -767,7 +773,8 @@ def test_chaos_study_with_kill_reap_and_drain_converges_exactly():
     assert _states(study)[TrialState.RUNNING] == 8
 
     # The dead worker's beats age past the grace period; a survivor reaps.
-    storage.stale.update(t._trial_id for t in study.trials if t.state == TrialState.RUNNING)
+    con = storage._conn()
+    con.execute("UPDATE trial_heartbeats SET heartbeat = heartbeat - 100000")
     survivor = optuna_tpu_torch.load_study(study_name="vchaos", storage=storage)
     survivor.sampler = RandomSampler(seed=99)  # irrelevant: clones fix params
     fail_stale_trials(survivor)
