@@ -179,13 +179,34 @@ Phases (any failure exits non-zero and prints no result line):
     the three runs (the killed run's third chunk, dispatched but never
     synced, swaps as the resumed run's last chunk does). Seconds of the
     seeding, of each run and of the resume's restore.
+33. Analysis and early stopping over the 1100 Hartmann-20D trials of
+    :func:`history_trials` (config #2's space at full width, past
+    ``N_EXACT_MAX``): fANOVA, MDI (64 trees each) and PED-ANOVA through
+    ``get_param_importances`` on the card and with ``device="cpu"``
+    (PED-ANOVA identical, fANOVA and MDI within 0.02 with the same top
+    parameter), ms of each; the forest alone on the card (profiler: kernels,
+    host reads) and on the CPU, and fANOVA's host variance apart from it;
+    ``RegretBoundEvaluator`` and ``EMMREvaluator`` on the card and the CPU
+    (within 1e-3 of the score's sd), K1 exactly once a sparse fit; a GP
+    study with ``TerminatorCallback(Terminator(BestValueStagnationEvaluator(3),
+    StaticErrorEvaluator(0)))`` stopping at the trial the stagnation rule
+    names; 3 GP trials from the 1100 with the default
+    ``TerminatorCallback()`` (K1 once an ask and once a callback, the
+    callback's seconds a trial); ``plot_hypervolume_history`` on a
+    5-objective DTLZ2 study of 96 ``RandomSampler`` trials, K3 exactly once
+    a prefix whose front holds 32 points, every value within 1e-3 of host
+    float64; ``plot_param_importances``, ``plot_optimization_history`` and
+    ``plot_terminator_improvement`` (30 trials) as JSON-able dicts; one
+    ``python -m optuna_tpu_torch.cli`` ask (TPE on the card, past its
+    startup trials) and tell over sqlite.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32) and
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33) and
 read just after it; every kernel must have launched on its path, the
 single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
 phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
-chunk and a swap-in on phase 32, and the
+chunk and a swap-in on phase 32, K1 and K3 exactly as counted on phase 33
+(no other kernel), and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -3280,6 +3301,315 @@ def phase_resume(k1_count) -> dict:
     return {"k1": sum(got_k1.values()), "seed_s": seed_s, "restore_s": restore_s, "runs_s": (kill_s, resume_s, twin_s)}
 
 
+# ------------------------------------------ phase 33: analysis and early stopping
+
+ANALYSIS_HISTORY = 1100  # config #2's space at full width, past N_EXACT_MAX: the terminator's GP is SGPR (K1)
+ANALYSIS_TREES = 64  # the forest evaluators' default n_trees
+IMPORTANCE_TOL = 0.02  # fANOVA / MDI card against CPU (tests/test_importance_parity.py's band; the card's
+#                        float32 sums run in another order, so trees part at near ties)
+TERMINATOR_TOL = 1e-3  # RegretBound / EMMR card against CPU, in units of the score's sd: the posterior's
+#                        1e-3 atol of tests/test_torch_gp_host.py (each side fits its own GP)
+STAGNATION_K = 3  # TerminatorCallback(Terminator(BestValueStagnationEvaluator(k), StaticErrorEvaluator(0)))
+STAGNATION_MAX_TRIALS = 60
+DEFAULT_CALLBACK_TRIALS = 3  # GP trials from the 1100-trial history with the default TerminatorCallback()
+HV_HISTORY_TRIALS, HV_HISTORY_M = 96, 5  # plot_hypervolume_history on 5-objective DTLZ2 (RandomSampler)
+TERMINATOR_PLOT_TRIALS = 30
+
+
+def analysis_study():
+    """A RandomSampler study holding :func:`history_trials` (1100 Hartmann-20D trials)."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.samplers import RandomSampler
+
+    study = ot.create_study(sampler=RandomSampler(seed=0))
+    study.add_trials(history_trials(ANALYSIS_HISTORY))
+    return study
+
+
+def analysis_importance(study) -> dict:
+    """fANOVA, MDI and PED-ANOVA on the card and with ``device="cpu"``; the
+    forest's kernels and host syncs (profiler) and fANOVA's host part."""
+    from optuna_tpu_torch import importance
+    from optuna_tpu_torch.importance._fanova import _tree_group_variances
+    from optuna_tpu_torch.ops.forest import fit_forest
+
+    out = {}
+    for name, cls in (("fANOVA", importance.FanovaImportanceEvaluator),
+                      ("MDI", importance.MeanDecreaseImpurityImportanceEvaluator),
+                      ("PED-ANOVA", importance.PedAnovaImportanceEvaluator)):
+        kwargs = {} if cls is importance.PedAnovaImportanceEvaluator else {"n_trees": ANALYSIS_TREES, "seed": 0}
+        card, card_s = timed(lambda: importance.get_param_importances(study, evaluator=cls(**kwargs)))
+        card2, card2_s = timed(lambda: importance.get_param_importances(study, evaluator=cls(**kwargs)))
+        cpu, cpu_s = timed(lambda: importance.get_param_importances(study, evaluator=cls(device="cpu", **kwargs)))
+        if set(card) != set(cpu) or not all(math.isfinite(v) for v in card.values()):
+            fail(f"importance {name}: card {card} against CPU {cpu}")
+        gap = max(abs(card[k] - cpu[k]) for k in card)
+        top = (max(card, key=card.get), max(cpu, key=cpu.get))
+        if name == "PED-ANOVA":
+            if card != cpu or card2 != card:
+                fail(f"importance PED-ANOVA: the card's {card} is not the CPU's {cpu}")
+        elif gap > IMPORTANCE_TOL or top[0] != top[1]:
+            fail(f"importance {name}: card against CPU {gap:.3g} apart (tolerance {IMPORTANCE_TOL}), top {top}")
+        out[name] = {"card_s": (card_s, card2_s), "cpu_s": cpu_s, "gap": gap, "top": top[0]}
+        print(f"phase 33 importance {name} ({ANALYSIS_HISTORY} trials, 20 params): card {card_s * 1e3:.1f} / "
+              f"{card2_s * 1e3:.1f} ms (first / second call), CPU {cpu_s * 1e3:.1f} ms; card against CPU max "
+              f"|gap| {gap:.3g}, top {top[0]} ({card[top[0]]:.4f})")
+
+    # The forest alone, as fANOVA grows it (encoded X in [0, 1]^20): traced, and its host variance part.
+    from optuna_tpu_torch.transform import SearchSpaceTransform
+
+    trials = study.get_trials(deepcopy=False)
+    space = trials[0].distributions
+    trans = SearchSpaceTransform(space, transform_log=False, transform_step=False, transform_0_1=True)
+    X = trans.encode_many([t.params for t in trials])
+    y = np.asarray([t.value for t in trials])
+    trees, forest_s = timed(lambda: fit_forest(X, y, n_trees=ANALYSIS_TREES, seed=0))
+    wall_ms, busy_ms, kernels, dtoh, syncs = profiled(
+        "forest", lambda: fit_forest(X, y, n_trees=ANALYSIS_TREES, seed=0)
+    )
+    groups = [np.asarray(c) for c in trans.column_to_encoded_columns]
+    t0 = time.perf_counter()
+    for tree in trees:
+        _tree_group_variances(tree, groups)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _, cpu_forest_s = timed(lambda: fit_forest(X, y, n_trees=ANALYSIS_TREES, seed=0, device="cpu"))
+    print(f"phase 33 forest ({ANALYSIS_TREES} trees, {ANALYSIS_HISTORY} x 20, depth 10, 128 bins, chunks of 8): "
+          f"card {forest_s * 1e3:.1f} ms ({kernels} kernels, {dtoh} device-to-host copies, {syncs} stream syncs "
+          f"traced; {kernels / ANALYSIS_TREES * 8:.0f} kernels a chunk), CPU {cpu_forest_s * 1e3:.1f} ms; fANOVA's "
+          f"host variance over the trees {host_ms:.1f} ms")
+    out["forest"] = {"card_ms": forest_s * 1e3, "cpu_ms": cpu_forest_s * 1e3, "kernels": kernels, "dtoh": dtoh,
+                     "syncs": syncs, "busy_ms": busy_ms, "wall_ms": wall_ms, "host_variance_ms": host_ms}
+    return out
+
+
+def analysis_terminator(study, k1_count) -> dict:
+    """RegretBound and EMMR at n = 1100 on the card (K1 once a sparse fit) and
+    on the CPU."""
+    from optuna_tpu_torch.terminator import EMMREvaluator, RegretBoundEvaluator
+
+    trials = study.get_trials(deepcopy=False)
+    values = np.asarray([t.value for t in trials])
+    sd = float(np.std(values))
+    out = {"k1": 0}
+    for cls, fits in ((RegretBoundEvaluator, 1), (EMMREvaluator, 2)):
+        before = k1_count()
+        card, card_s = timed(lambda: cls().evaluate(trials, study.direction))
+        k1 = k1_count() - before
+        cpu, cpu_s = timed(lambda: cls(device="cpu").evaluate(trials, study.direction))
+        if k1 != fits:
+            fail(f"terminator {cls.__name__}: K1 launched {k1} times, expected {fits} (one a sparse fit)")
+        if not (math.isfinite(card) and math.isfinite(cpu)) or abs(card - cpu) > TERMINATOR_TOL * sd:
+            fail(f"terminator {cls.__name__}: card {card} against CPU {cpu} (tolerance {TERMINATOR_TOL} x sd {sd:.4f})")
+        out["k1"] += k1
+        out[cls.__name__] = {"card_s": card_s, "cpu_s": cpu_s, "card": card, "cpu": cpu}
+        print(f"phase 33 terminator {cls.__name__} at n={len(trials)} (SGPR, m 256): card {card_s:.3f} s, CPU "
+              f"{cpu_s:.3f} s; value card {card:.6g}, CPU {cpu:.6g} (|gap| {abs(card - cpu):.3g}, sd {sd:.4f}); "
+              f"K1 {k1}")
+    return out
+
+
+def stagnation_stop(values: list[float], k: int, min_n_trials: int = 20) -> int:
+    """The trial count at which Terminator(BestValueStagnationEvaluator(k),
+    StaticErrorEvaluator(0)) stops a minimizing study: the first prefix of at
+    least ``min_n_trials`` whose best is more than ``k`` trials old."""
+    for n in range(min_n_trials, len(values) + 1):
+        best = int(np.argmin(values[:n]))  # the first best, as the evaluator keeps it
+        if n - 1 - best > k:
+            return n
+    return len(values)
+
+
+def analysis_callbacks(k1_count) -> dict:
+    """The terminator in GP studies: the stagnation rule's stop, then the
+    default TerminatorCallback() from the 1100-trial history."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+    from optuna_tpu_torch.samplers import GPSampler
+    from optuna_tpu_torch.terminator import (
+        BestValueStagnationEvaluator,
+        StaticErrorEvaluator,
+        Terminator,
+        TerminatorCallback,
+    )
+
+    study = ot.create_study(sampler=GPSampler(seed=0))
+    callback = TerminatorCallback(Terminator(BestValueStagnationEvaluator(STAGNATION_K), StaticErrorEvaluator(0.0)))
+    _, stag_s = timed(lambda: study.optimize(hartmann20, n_trials=STAGNATION_MAX_TRIALS, callbacks=[callback]))
+    values = [t.value for t in study.get_trials(deepcopy=False)]
+    want = stagnation_stop(values, STAGNATION_K)
+    if len(values) != want or len(values) >= STAGNATION_MAX_TRIALS:
+        fail(f"terminator: the stagnation callback stopped at {len(values)} trials, the rule says {want}")
+
+    study = seeded_study(ANALYSIS_HISTORY)
+    default = TerminatorCallback()
+    spent, k1_in_callback = [], [0]
+
+    def timed_callback(study, trial):
+        before = k1_count()
+        t0 = time.perf_counter()
+        default(study, trial)
+        spent.append(time.perf_counter() - t0)
+        k1_in_callback[0] += k1_count() - before
+
+    before = k1_count()
+    _, run_s = timed(lambda: study.optimize(hartmann20, n_trials=DEFAULT_CALLBACK_TRIALS, callbacks=[timed_callback]))
+    k1 = k1_count() - before
+    n_new = len(study.get_trials(deepcopy=False)) - ANALYSIS_HISTORY
+    stopped = n_new < DEFAULT_CALLBACK_TRIALS
+    check_gp_trials("terminator", study, ANALYSIS_HISTORY, n_new)
+    if k1_in_callback[0] != n_new or k1 != 2 * n_new:
+        fail(f"terminator: K1 {k1} over {n_new} sparse GP asks and callbacks ({k1_in_callback[0]} in the callbacks), "
+             "expected one an ask and one a callback's regret bound")
+    print(f"phase 33 terminator in a study: GPSampler on Hartmann-20D with TerminatorCallback(Terminator("
+          f"BestValueStagnationEvaluator({STAGNATION_K}), StaticErrorEvaluator(0))) stopped at trial {len(values)} "
+          f"as the rule says ({stag_s:.2f} s); the default TerminatorCallback() from {ANALYSIS_HISTORY} trials: "
+          f"{n_new} GP trials in {run_s:.3f} s, the callback {[round(s, 4) for s in spent]} s a trial "
+          f"({'stopped the study' if stopped else 'did not stop'}), K1 {k1} ({k1_in_callback[0]} in the callback)")
+    return {"k1": k1, "callback_s": spent, "stagnation_stop": len(values)}
+
+
+def hv_increments(values: np.ndarray, ref: np.ndarray) -> list[float]:
+    """Every prefix's hypervolume in host float64, built up by exclusive
+    contributions (vol(p) - HV of the prefix limited by p): independent of
+    the routed path it is held against."""
+    from optuna_tpu_torch.hypervolume.wfg import _pareto_filter
+    from optuna_tpu_torch.hypervolume.wfg import compute_hypervolume as host_hv
+
+    total, out = 0.0, []
+    for i, p in enumerate(values):
+        if np.all(p < ref):
+            prev = values[:i][np.all(values[:i] < ref, axis=1)]
+            limited = _pareto_filter(np.maximum(prev, p)) if len(prev) else prev
+            total += float(np.prod(ref - p)) - (host_hv(limited, ref) if len(limited) else 0.0)
+        out.append(total)
+    return out
+
+
+def analysis_hypervolume(stack) -> dict:
+    """plot_hypervolume_history on 5-objective DTLZ2: K3 once a routed prefix."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.hypervolume.wfg import _pareto_filter
+    from optuna_tpu_torch.samplers import RandomSampler
+    from optuna_tpu_torch.visualization import plot_hypervolume_history
+
+    study = ot.create_study(directions=["minimize"] * HV_HISTORY_M, sampler=RandomSampler(seed=0))
+    study.optimize(lambda t: dtlz2(t, m=HV_HISTORY_M), n_trials=HV_HISTORY_TRIALS)
+    values = np.asarray([t.values for t in study.get_trials(deepcopy=False)])
+    ref = values.max(axis=0) * 1.1
+    # The routing rule of hypervolume.compute_hypervolume: every point lies inside ref, so a prefix takes
+    # the WFG stack once its Pareto front holds 32 points (the front can shrink as well as grow).
+    fronts = [len(_pareto_filter(values[: i + 1])) for i in range(len(values))]
+    routed = sum(f >= 32 for f in fronts)
+    before = stack.STACK_LAUNCHES
+    fig, seconds = timed(lambda: plot_hypervolume_history(study, list(ref)))
+    launches = stack.STACK_LAUNCHES - before
+    hv = np.asarray(fig["data"][0]["y"])
+    want = np.asarray(hv_increments(values, ref))
+    rel = float(np.max(np.abs(hv - want) / np.maximum(want, 1e-300)))
+    if launches != routed or routed < 1:
+        fail(f"hypervolume history: K3 launched {launches} times, expected {routed} (one a prefix whose front holds "
+             "32 points or more)")
+    if rel > HV_TOL_F64 or len(hv) != HV_HISTORY_TRIALS:
+        fail(f"hypervolume history: {len(hv)} values, {rel:.3g} from host float64 (tolerance {HV_TOL_F64})")
+    json.dumps(fig)
+    print(f"phase 33 plot_hypervolume_history ({HV_HISTORY_M}-objective DTLZ2, {HV_HISTORY_TRIALS} RandomSampler "
+          f"trials): {seconds:.3f} s, K3 {launches} (one a prefix whose front holds 32 points or more, the first "
+          f"at trial {next(i for i, f in enumerate(fronts) if f >= 32)}; final front {fronts[-1]}), max rel gap to "
+          f"host float64 {rel:.3g}, final {hv[-1]:.6f}")
+    return {"k3": launches, "s": seconds}
+
+
+def analysis_figures(study) -> float:
+    """plot_param_importances, plot_optimization_history and
+    plot_terminator_improvement as JSON-serializable figure dicts."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import visualization as vis
+    from optuna_tpu_torch.samplers import RandomSampler
+
+    t0 = time.perf_counter()
+    small = ot.create_study(sampler=RandomSampler(seed=0))
+    small.add_trials(history_trials(TERMINATOR_PLOT_TRIALS, seed=1))
+    figs = {
+        "plot_param_importances": vis.plot_param_importances(study),
+        "plot_optimization_history": vis.plot_optimization_history(study),
+        "plot_terminator_improvement": vis.plot_terminator_improvement(small),
+    }
+    for name, fig in figs.items():
+        if not isinstance(fig, dict) or not fig.get("data"):
+            fail(f"figures: {name} returned {type(fig).__name__}")
+        json.dumps(fig)
+    improvement = figs["plot_terminator_improvement"]["data"][0]["y"]
+    if len(improvement) != TERMINATOR_PLOT_TRIALS - 20 + 1 or not all(math.isfinite(v) for v in improvement):
+        fail(f"figures: terminator improvement {improvement}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 33 figures: plot_param_importances, plot_optimization_history, plot_terminator_improvement "
+          f"({TERMINATOR_PLOT_TRIALS} trials, {len(improvement)} exact GP fits) as JSON dicts in {seconds:.2f} s")
+    return seconds
+
+
+def analysis_cli() -> float:
+    """One `python -m optuna_tpu_torch.cli` ask/tell round over sqlite, the
+    ask past TPE's 10 startup trials (its KDE on the card)."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.distributions import FloatDistribution
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        url = f"sqlite:///{os.path.join(tmp, 'cli.db')}"
+        rng = np.random.default_rng(3)
+        study = ot.create_study(storage=url, study_name="cli")
+        dists = {"x": FloatDistribution(0.0, 1.0), "y": FloatDistribution(0.0, 1.0)}
+        study.add_trials([
+            ot.create_trial(params={"x": float(a), "y": float(b)}, distributions=dists, value=float((a - 0.3) ** 2 + b))
+            for a, b in rng.uniform(0, 1, (12, 2))
+        ])
+        space = json.dumps({n: {"name": "FloatDistribution", "attributes": {"low": 0.0, "high": 1.0, "log": False,
+                                                                              "step": None}} for n in dists})
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+        def cli(*argv):
+            proc = subprocess.run([sys.executable, "-m", "optuna_tpu_torch.cli", *argv], capture_output=True,
+                                  text=True, env=env, timeout=300)
+            if proc.returncode != 0:
+                fail(f"cli {argv[0]}: exit {proc.returncode}: {proc.stderr.strip()[-800:]}")
+            return proc.stdout
+
+        t0 = time.perf_counter()
+        asked = json.loads(cli("ask", "--storage", url, "--study-name", "cli", "--search-space", space,
+                               "--sampler", "TPESampler", "--sampler-kwargs", json.dumps({"seed": 0, "device": "cuda"})))
+        ask_s = time.perf_counter() - t0
+        value = (asked["params"]["x"] - 0.3) ** 2 + asked["params"]["y"]
+        t0 = time.perf_counter()
+        cli("tell", "--storage", url, "--study-name", "cli", "--trial-number", str(asked["number"]), "--values",
+            repr(value))
+        tell_s = time.perf_counter() - t0
+        rows = ot.load_study(study_name="cli", storage=url).get_trials(deepcopy=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    last = rows[-1]
+    if len(rows) != 13 or last.number != 12 or last.state != ot.TrialState.COMPLETE or last.values != [value]:
+        fail(f"cli: the round left {len(rows)} trials, the last {last}")
+    if not all(0.0 <= asked["params"][n] <= 1.0 for n in ("x", "y")):
+        fail(f"cli: asked {asked}")
+    print(f"phase 33 CLI: `python -m optuna_tpu_torch.cli ask` (TPESampler on cuda, trial 12 past 10 startup) "
+          f"{ask_s:.2f} s, `tell` {tell_s:.2f} s (a process each, imports included), trial 12 COMPLETE at "
+          f"{value:.6f}")
+    return ask_s + tell_s
+
+
+def phase_analysis(k1_count, stack) -> dict:
+    """Phase 33 (see the module docstring)."""
+    study = analysis_study()
+    importance = analysis_importance(study)
+    terminator = analysis_terminator(study, k1_count)
+    callbacks = analysis_callbacks(k1_count)
+    hv = analysis_hypervolume(stack)
+    figures_s = analysis_figures(study)
+    cli_s = analysis_cli()
+    return {"importance": importance, "terminator": terminator, "callbacks": callbacks, "hv": hv,
+            "k1": terminator["k1"] + callbacks["k1"], "k3": hv["k3"], "figures_s": figures_s, "cli_s": cli_s}
+
+
 def main() -> None:
     try:
         import torch
@@ -3400,6 +3730,15 @@ def main() -> None:
     resume = phase_resume(k1_count)
     resume_counts = counts()
     print(f"resume phase 32: {time.perf_counter() - t_resume:.1f} s, set-up and checks included")
+    t_analysis = time.perf_counter()
+    reset()
+    analysis = phase_analysis(k1_count, wrappers["wfg_stack"])
+    analysis_counts = counts()
+    print(f"analysis phase 33: {time.perf_counter() - t_analysis:.1f} s, set-up and checks included")
+    want_analysis = dict.fromkeys(analysis_counts, 0)
+    want_analysis.update(matern52_gram=analysis["k1"], wfg_stack=analysis["k3"])
+    if analysis_counts != want_analysis:
+        fail(f"phase 33 launched {analysis_counts}, expected {want_analysis}")
     if resume_counts["matern52_gram"] != resume["k1"] or any(v for k, v in resume_counts.items() if k != "matern52_gram"):
         fail(f"phase 32 launched {resume_counts}, expected K1 {resume['k1']} and no other kernel")
     if any(batch_counts.values()):
@@ -3416,11 +3755,12 @@ def main() -> None:
         fail(f"the single-objective TPE paths launched kernels: {tpe_counts}")
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
-        + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"] + resume_counts["matern52_gram"],
+        + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"] + resume_counts["matern52_gram"]
+        + analysis_counts["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
-        + motpe3_counts["wfg_stack"],
+        + motpe3_counts["wfg_stack"] + analysis_counts["wfg_stack"],
     }
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "
@@ -3433,7 +3773,9 @@ def main() -> None:
         f"GP phases 25-28: K1 {gp_rest['matern52_gram']} = chain {chain['sparse']['k1']} + batch "
         f"{chain['sparse']['k1_batch']}, running {running['sparse']['k1']}, constraints "
         f"{constrained[4000]['k1']}, LogEHVI 0; phase 31: K1 {gp_batches['k1']} over {GP_BATCHES} batches; "
-        f"phase 32: K1 {resume['k1']} over the killed, resumed and twin scans)"
+        f"phase 32: K1 {resume['k1']} over the killed, resumed and twin scans; phase 33: K1 {analysis['k1']} = "
+        f"terminator {analysis['terminator']['k1']} + GP study with the callback {analysis['callbacks']['k1']}, "
+        f"K3 {analysis['k3']} over the hypervolume history's routed prefixes)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -3445,11 +3787,11 @@ def main() -> None:
     if hv["wfg_stack"] != 2:
         fail(f"wfg_stack launched {hv['wfg_stack']} times on the hypervolume path, expected 1 per hypervolume and 1 "
              "per leave-one-out")
-    if hssp_counts["wfg_stack"] != HSSP_K or launches["wfg_stack"] != 2 + HSSP_K:
+    if hssp_counts["wfg_stack"] != HSSP_K or launches["wfg_stack"] != 2 + HSSP_K + analysis["k3"]:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
     paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
-             batch_counts, gp_batch_counts, resume_counts)
+             batch_counts, gp_batch_counts, resume_counts, analysis_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -3482,6 +3824,10 @@ def main() -> None:
         f"s/ask, config #5 {mlp5['trials_per_s'][0]:.1f} trials/s ({mlp5['gflops']:.1f} GFLOP/s in a "
         f"{mlp5['batch_ms']:.3f} ms batch), GP batches of {GP_BATCH} {gp_batches['s'] / GP_BATCHES:.3f} s, "
         f"scan resume {resume['runs_s'][1]:.3f} s (restore {resume['restore_s']:.4f} s), "
+        f"fANOVA at n={ANALYSIS_HISTORY} {analysis['importance']['fANOVA']['card_s'][1] * 1e3:.1f} ms (CPU torch "
+        f"{analysis['importance']['fANOVA']['cpu_s'] * 1e3:.1f}), regret bound "
+        f"{analysis['terminator']['RegretBoundEvaluator']['card_s']:.3f} s (CPU torch "
+        f"{analysis['terminator']['RegretBoundEvaluator']['cpu_s']:.3f}), "
         f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))

@@ -28,6 +28,13 @@ samplers, ``GuardedSampler``, ``FixedTrial``):
   dispatch deadline), B trials a dispatch of a batched objective, such as
   config #5's MLP (``models.mlp``).
 
+Analysis and early stopping sit on those paths: ``importance`` (fANOVA and
+mean decrease impurity over a histogram random forest grown on the card,
+PED-ANOVA on the host), ``terminator`` (the GP regret bound and EMMR on the
+card, stagnation, the error evaluators, ``TerminatorCallback``),
+``visualization`` (plotly-schema figures and a matplotlib mirror),
+``artifacts``, ``cli`` and ``integration``.
+
 Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
 (``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the
 non-domination ranking (NSGA-II, and MOTPE's split), the WFG hypervolume
@@ -38,7 +45,7 @@ of moving to the CPU.
 """
 
 from optuna_tpu_torch import _device  # noqa: F401  (TF32 off before any tensor work)
-from optuna_tpu_torch import distributions, exceptions, logging, pruners, samplers
+from optuna_tpu_torch import distributions, exceptions, importance, logging, pruners, samplers
 from optuna_tpu_torch import search_space, storages, study, trial, utils
 from optuna_tpu_torch import parallel  # after study and trial: the scan loop builds trials
 from optuna_tpu_torch.exceptions import TrialPruned
@@ -66,6 +73,8 @@ __all__ = [
     "TrialPruned",
     "TrialState",
     "__version__",
+    "artifacts",
+    "cli",
     "copy_study",
     "create_study",
     "create_trial",
@@ -74,6 +83,8 @@ __all__ = [
     "exceptions",
     "get_all_study_names",
     "get_all_study_summaries",
+    "importance",
+    "integration",
     "load_study",
     "logging",
     "parallel",
@@ -82,6 +93,27 @@ __all__ = [
     "search_space",
     "storages",
     "study",
+    "terminator",
     "trial",
     "utils",
+    "visualization",
 ]
+
+
+# Heavy or optional subpackages load lazily, as the reference's do
+# (``optuna_tpu/__init__.py``).
+_LAZY_SUBPACKAGES = frozenset(
+    {"artifacts", "cli", "integration", "progress_bar", "terminator", "visualization"}
+)
+
+
+def __getattr__(name: str):
+    if name in _LAZY_SUBPACKAGES:
+        import importlib
+
+        return importlib.import_module(f"optuna_tpu_torch.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__() -> list[str]:
+    return sorted(set(globals()) | _LAZY_SUBPACKAGES)

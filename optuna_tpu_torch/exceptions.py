@@ -25,6 +25,10 @@ class TrialPruned(OptunaTPUError):
     """
 
 
+class CLIUsageError(OptunaTPUError):
+    """Raised when CLI arguments are invalid."""
+
+
 class StorageInternalError(OptunaTPUError):
     """Raised when a storage backend hits an unrecoverable internal error."""
 

@@ -287,3 +287,106 @@ def assert_same_trials(a: dict, b: dict) -> None:
             assert _same_float(v, y.intermediate_values[step]), (step, v, y.intermediate_values[step])
         assert (x.datetime_start is None) == (y.datetime_start is None)
         assert (x.datetime_complete is None) == (y.datetime_complete is None)
+
+
+# --------------------------------- the forest and EMMR: the reference's draws
+
+
+def jax_bootstrap_weights(n_trees: int, n: int, seed) -> torch.Tensor:
+    """The reference's bootstrap (``optuna_tpu/ops/forest.py``): per tree,
+    ``choice(key, n, (n,))`` from ``split(PRNGKey(seed), n_trees)``, as the
+    (n_trees, n) weights the port's ``_grow_trees`` takes."""
+    import jax
+    import jax.numpy as jnp
+
+    keys = jax.random.split(jax.random.PRNGKey(0 if seed is None else seed), n_trees)
+
+    def one(key):
+        return jnp.zeros(n, jnp.float32).at[jax.random.choice(key, n, shape=(n,))].add(1.0)
+
+    return torch.as_tensor(np.array(jax.vmap(one)(keys)))
+
+
+@pytest.fixture
+def reference_forest_draws(monkeypatch):
+    """Hand the reference's bootstrap to every forest the port grows."""
+    from optuna_tpu_torch.ops import forest
+
+    monkeypatch.setattr(forest, "_bootstrap_weights", jax_bootstrap_weights)
+
+
+def jax_emmr_normals(n_samples: int, n: int, seed: int) -> np.ndarray:
+    """The reference EMMR's normals, ``normal(PRNGKey(seed), (n_samples, n))``
+    (``optuna_tpu/terminator/_evaluators.py``)."""
+    import jax
+
+    return np.array(jax.random.normal(jax.random.PRNGKey(seed), (n_samples, n)))
+
+
+@pytest.fixture
+def reference_emmr_normals(monkeypatch):
+    """Hand the reference's normals to every EMMR evaluation of the port."""
+    from optuna_tpu_torch.terminator import _evaluators
+
+    monkeypatch.setattr(_evaluators, "_emmr_normals", jax_emmr_normals)
+
+
+def _split_gain(members, weights, y, left) -> float:
+    """Σ_l²/n_l + Σ_r²/n_r of one split of a node's samples, in float64."""
+    w = np.where(members, weights, 0.0)
+    cl, cr = w[left].sum(), w[~left].sum()
+    sl, sr = (w * y)[left].sum(), (w * y)[~left].sum()
+    return sl * sl / cl + sr * sr / cr
+
+
+def assert_forests_agree(
+    ref_trees, port_trees, X, y_std, weights, *, scale=1.0, atol=1e-5, gain_rtol=1e-6
+) -> int:
+    """Hold two forests' exported trees (``DeviceTree``) to each other, tree
+    for tree and node for node: the same feature and threshold, and node
+    count, value and impurity within ``atol`` (values in units of the
+    target's ``scale`` plus their own size, impurities of ``scale**2``, the
+    float32 rescale of the export). Where a node's split parts, it
+    must be a near tie: the two splits' gains over the node's samples
+    (float64, standardized target ``y_std``, bootstrap ``weights`` (T, n))
+    within ``gain_rtol`` relative, or, where one side keeps a leaf, the
+    other's gain within ``gain_rtol`` of the split threshold (the parent's
+    score plus 1e-7). The subtree below a parting is not compared. Returns
+    the number of partings."""
+    X = np.asarray(X, np.float64)
+    y_std = np.asarray(y_std, np.float64)
+    weights = np.asarray(weights, np.float64)
+    assert len(ref_trees) == len(port_trees)
+    partings = 0
+    for t, (rt, pt) in enumerate(zip(ref_trees, port_trees)):
+        r, p = rt.tree_, pt.tree_
+        n_nodes = len(r.feature)
+        assert len(p.feature) == n_nodes
+        members = {0: np.ones(len(X), bool)}
+        for k in range(n_nodes):
+            if k not in members:
+                continue  # under a parting or never reached
+            for name, a, b, tol in (
+                ("count", r.n_node_samples, p.n_node_samples, atol),
+                ("value", r.value, p.value, atol * (scale + abs(r.value[k]))),
+                ("impurity", r.impurity, p.impurity, atol * scale * scale),
+            ):
+                assert abs(a[k] - b[k]) <= tol, (t, k, name, a[k], b[k])
+            m = members.pop(k)
+            same = r.feature[k] == p.feature[k] and (r.feature[k] < 0 or r.threshold[k] == p.threshold[k])
+            if same:
+                if r.feature[k] >= 0:
+                    left = X[:, r.feature[k]] < r.threshold[k]
+                    members[2 * k + 1], members[2 * k + 2] = m & left, m & ~left
+                continue
+            partings += 1
+            gains = [
+                _split_gain(m, weights[t], y_std, X[:, tr.feature[k]] < tr.threshold[k])
+                for tr in (r, p)
+                if tr.feature[k] >= 0
+            ]
+            if len(gains) == 1:  # a leaf on one side: the split test's own threshold
+                w = np.where(m, weights[t], 0.0)
+                gains.append((w * y_std).sum() ** 2 / w.sum() + 1e-7)
+            assert abs(gains[0] - gains[1]) <= gain_rtol * max(abs(gains[0]), 1.0), (t, k, gains)
+    return partings

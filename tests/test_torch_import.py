@@ -341,3 +341,79 @@ def test_the_batch_modules_import_with_jax_and_the_reference_blocked():
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
     )
     assert out.returncode == 0, out.stderr
+
+
+A10_MODULES = [
+    "optuna_tpu_torch.artifacts",
+    "optuna_tpu_torch.artifacts._backends",
+    "optuna_tpu_torch.artifacts.exceptions",
+    "optuna_tpu_torch.cli",
+    "optuna_tpu_torch.importance",
+    "optuna_tpu_torch.importance._base",
+    "optuna_tpu_torch.importance._evaluate",
+    "optuna_tpu_torch.importance._fanova",
+    "optuna_tpu_torch.importance._mean_decrease_impurity",
+    "optuna_tpu_torch.importance._ped_anova",
+    "optuna_tpu_torch.integration",
+    "optuna_tpu_torch.ops.forest",
+    "optuna_tpu_torch.terminator",
+    "optuna_tpu_torch.terminator._evaluators",
+    "optuna_tpu_torch.terminator._terminator",
+    "optuna_tpu_torch.terminator.callback",
+    "optuna_tpu_torch.terminator.erroreval",
+    "optuna_tpu_torch.terminator.improvement",
+    "optuna_tpu_torch.terminator.improvement.emmr",
+    "optuna_tpu_torch.terminator.improvement.evaluator",
+    "optuna_tpu_torch.terminator.median_erroreval",
+    "optuna_tpu_torch.terminator.terminator",
+    "optuna_tpu_torch.visualization",
+    "optuna_tpu_torch.visualization._data",
+    "optuna_tpu_torch.visualization.matplotlib",
+    "optuna_tpu_torch.visualization.matplotlib._plots",
+]
+#: What the card host lacks (``PERF.md``): the A10 modules import, and a
+#: figure dict is built, with these refused too.
+CARD_HOST_MISSING = ("matplotlib", "sklearn", "pandas", "plotly")
+
+
+def test_the_analysis_modules_import_with_jax_the_reference_and_plotting_blocked():
+    """Analysis and early stopping (A10) import with ``jax``, ``jaxlib``,
+    ``optuna_tpu`` and the plotting and table packages refused; the
+    importance evaluators, the terminator and a plotly-schema figure run
+    (on the CPU), and the CLI parses."""
+    assert set(A10_MODULES) <= set(_all_modules())
+    blocked = FORBIDDEN + CARD_HOST_MISSING
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        f"        if name.split('.')[0] in {blocked!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {A10_MODULES!r}: importlib.import_module(m)\n"
+        "import optuna_tpu_torch as ot\n"
+        "from optuna_tpu_torch.samplers import RandomSampler\n"
+        "s = ot.create_study(sampler=RandomSampler(seed=0))\n"
+        "s.optimize(lambda t: t.suggest_float('a', 0, 1) ** 2 + 0.1 * t.suggest_float('b', 0, 1), n_trials=25)\n"
+        "imp = ot.importance.get_param_importances(s, evaluator=ot.importance.FanovaImportanceEvaluator(\n"
+        "    n_trees=4, seed=0, device='cpu'))\n"
+        "assert set(imp) == {'a', 'b'}\n"
+        "assert ot.terminator.RegretBoundEvaluator(device='cpu').evaluate(s.trials, s.direction) > 0\n"
+        "fig = ot.visualization.plot_optimization_history(s)\n"
+        "assert isinstance(fig, dict) and fig['data']\n"
+        "assert not ot.visualization.matplotlib.is_available()\n"
+        "assert ot.cli._build_parser().parse_args(['studies', '--storage', 'x']).command == 'studies'\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_plotting_and_table_packages_are_imported_only_where_used():
+    """The card host has no matplotlib, scikit-learn, pandas or plotly: no
+    module of the port imports them at its top level."""
+    for path in sorted(PACKAGE.rglob("*.py")):
+        assert not (_module_level_roots(path) & set(CARD_HOST_MISSING)), path

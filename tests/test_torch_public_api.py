@@ -1,8 +1,9 @@
 """The port's public surface covers the reference's.
 
 Each ported package's ``__all__`` (top level, ``trial``, ``gp``, ``models``,
-``samplers``, ``storages``, ``parallel``) holds every name of the
-reference's, except the names that open ROADMAP items still own: those are
+``samplers``, ``storages``, ``parallel``, and A10's ``terminator``,
+``importance``, ``visualization``, ``artifacts``, ``integration``) holds
+every name of the reference's, except the names that open ROADMAP items still own: those are
 listed below, each tagged with its item, and each must really be missing
 (a name that lands leaves the list). Every exported name resolves.
 """
@@ -16,14 +17,7 @@ import pytest
 #: Reference names the port does not export yet, by package, tagged with the
 #: ROADMAP item that owns each.
 NOT_YET: dict[str, dict[str, str]] = {
-    "": {
-        "terminator": "A10",
-        "importance": "A10",
-        "visualization": "A10",
-        "artifacts": "A10",
-        "cli": "A10",
-        "integration": "A10",
-    },
+    "": {},
     "trial": {},
     "gp": {},
     "models": {
@@ -34,6 +28,11 @@ NOT_YET: dict[str, dict[str, str]] = {
         "rastrigin_jax": "not queued",
     },
     "samplers": {"ThinClientSampler": "A9"},
+    "terminator": {},
+    "importance": {},
+    "visualization": {},
+    "artifacts": {},
+    "integration": {},
     "storages": {"GrpcStorageProxy": "A9", "run_grpc_proxy_server": "A9"},
     "parallel": {
         name: "A8a"
@@ -68,6 +67,10 @@ def test_all_covers_the_references_but_for_tagged_items(sub):
 def test_every_exported_name_resolves(sub):
     _, port = _modules(sub)
     for name in port.__all__:
+        if sub == "integration":  # forwarded names: each raises, naming the companion package
+            with pytest.raises(ImportError, match=f"optuna_tpu_torch.integration.{name} requires"):
+                getattr(port, name)
+            continue
         assert getattr(port, name) is not None, name
 
 
