@@ -68,7 +68,7 @@ Phases (any failure exits non-zero and prints no result line):
 14. Hyperband with TPE on the card: every trial's bracket is the crc32
     rule's, and the sampler reads only its bracket's trials.
 15. ``create_study()`` with no sampler samples with TPE on ``cuda``.
-16. MOTPE (TPE on two objectives) on ZDT1, 30 variables, 640 trials: K2
+16. MOTPE (TPE on two objectives) on ZDT1, 30 variables, 576 trials: K2
     ranks the split on every ask from 512 complete trials and on none
     before; the first ranking equals the host's; the twin is identical.
 17. Host and card times at the reference's routing thresholds (rank at
@@ -120,15 +120,15 @@ Phases (any failure exits non-zero and prints no result line):
     (``sample_relative_batch``) at each size: 8 points in the box, not all
     one (the reference's test), with the distinct ones counted.
 26. Running trials (qLogEI from worker threads): ``n_jobs`` 2 and 4 from
-    1000 seeded trials, with an objective slower than an ask (0.2 s, then
+    1000 seeded trials (6 and 8 trials), with an objective slower than an ask (0.2 s, then
     held while an ask is in flight): at least asks less workers take
     ``_build_qlogei`` (a script-side wrap), all COMPLETE; then 2 asks from
     1000 and from 4000 beside a RUNNING trial, K1 once an ask from 4000
     (the sparse host fit).
 27. Constraints: Hartmann-20D with ``sum(x) - 10 <= 0`` through
-    ``constraints_func``; 4 asks from 1000 seeded trials with constraint
+    ``constraints_func``; 2 asks from 1000 seeded trials with constraint
     attrs, 2 from 4000 with K1 exactly 2 an ask (objective and constraint).
-28. LogEHVI: ZDT1 (30 variables) 5 asks from 300 seeded trials, 3-objective
+28. LogEHVI: ZDT1 (30 variables) 3 asks from 300 seeded trials, 3-objective
     DTLZ2 (12 variables) 3 asks from 200; the box count, s an ask, the
     kernels (and copies) of one more ask and the synchronizing calls of
     another, K1 exactly 0; one ask on the card and one on the CPU from the
@@ -200,13 +200,34 @@ Phases (any failure exits non-zero and prints no result line):
     ``python -m optuna_tpu_torch.cli`` ask (TPE on the card, past its
     startup trials) and tell over sqlite.
 
+34. The doctor and the autopilot on config #2's scan: the 1100 trials of
+    :func:`history_trials` in sqlite; ``optimize_scan`` of 160 trials
+    (``sync_every`` 32, seed 0, ``n_exact_max`` 1024, ``n_inducing`` 128:
+    five SGPR chunks at bucket 2048) with telemetry, the flight recorder, the
+    health reporter (``interval_s=0``) and the autopilot in ``act`` mode
+    (``sparse_heldout_err_warn`` 0, ``rollback_after`` 64, an hour's
+    cooldown): ``gp.densify`` decided once at chunk 0's sync (chunk 1 is
+    already dispatched), K1's inducing operand 128 rows in chunks 0-1 and
+    256 in chunks 2-3, the rollback verdict at chunk 2's sync (does chunk
+    2's held-out error at m = 256 fall below chunk 0's?) and chunk 4 at the
+    verdict's width; the verdict in the control dict, the sqlite mirror and
+    ``optuna-tpu-torch doctor`` / ``autopilot`` (two processes); chunk 2
+    under ``_tracing.trace``, its K1 kernels inside ``scan.chunk``; the
+    Chrome trace, the exposition (the reference's grammar) and
+    ``serve_metrics`` on a loopback port; observe, autopilot-off and
+    all-hooks-off twins of one SGPR chunk identical trial for trial, run in
+    turns (off, observe, autopilot off, off) for the seconds an SGPR chunk
+    with every hook on and off; ``AutopilotChaosPlan``
+    through ``optimize_vectorized(autopilot=...)`` on the card; the device
+    policy's round trip, which must keep small kernels on the card.
+
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33) and
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34) and
 read just after it; every kernel must have launched on its path, the
 single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
 phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
 chunk and a swap-in on phase 32, K1 and K3 exactly as counted on phase 33
-(no other kernel), and the
+(no other kernel), K1 exactly as its spy counts on phase 34, and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -283,7 +304,8 @@ SCAN_FRESH_TRIALS = 48  # 16 startup trials, then chunks of 16 at buckets 32 and
 SCAN_LOSS_RTOL = 1e-4  # scan chunk card vs CPU: the fitted loss (tests/test_torch_scan_parity.py)
 SCAN_LOGEI_ATOL = 1e-3  # ... and the LogEI of the first proposals, the same points on both sides
 TPE_TRIALS, TPE_WARMUP = 300, 50  # bench.py --config tpe_highdim: 50 warm-up trials, then the timed window
-MOTPE_TRIALS = 640  # two-objective TPE on ZDT1: asks from trial 512 on rank through K2 (1024 before PR 9)
+MOTPE_TRIALS = 576  # two-objective TPE on ZDT1: asks from trial 512 on rank through K2 (1024 before PR 9, 640
+#                    before phase 34)
 TPE_ASKS = 200  # asks packed from a study's own history, card against CPU
 # Card against CPU at the ask level, as measured on an H100 (PERF.md, Findings):
 # scores 1.81e-4 apart (of max(1, |score|)) and candidates 6.2e-5 of a width,
@@ -1536,7 +1558,7 @@ def host_ranks(values: np.ndarray) -> np.ndarray:
 
 def phase_motpe(nds, gpu: str) -> dict:
     """MOTPE (``TPESampler(seed=0)`` on a two-objective study) on ZDT1, 30
-    variables, 640 trials: from 512 complete trials every ask's split ranks
+    variables, 576 trials: from 512 complete trials every ask's split ranks
     through K2 on the card, and none before; the first such ranking equals
     the host's; the seeded study run twice is identical."""
     import optuna_tpu_torch.study._multi_objective as mo
@@ -2363,7 +2385,8 @@ def phase_cmaes(gpu: str) -> dict:
 CHAIN_Q = 8  # bench.py's config #2: GPSampler(seed=0, speculative_chain=8)
 CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS = 960, 32  # 4 dispatches at n = 960 ... 984, all at bucket 1024
 CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS = 4000, 16  # 2 sparse dispatches, K1 once each
-RUNNING_TRIALS = {2: 8, 4: 12}  # n_jobs -> trials from 1000 seeded ones: several qLogEI asks a setting
+RUNNING_TRIALS = {2: 6, 4: 8}  # n_jobs -> trials from 1000 seeded ones: several qLogEI asks a setting (8 and 12
+#                                 before PR 13, cut to pay for phase 34)
 GP_CARD_CPU_TOL = 1e-3  # the first host-route ask on the card against the CPU, normalized space
 GP_TIE = 1e-3  # ... a parting is allowed only where the two winners' acquisition values are this close
 ZDT_GP_FROM, DTLZ_GP_FROM = 300, 200
@@ -2668,7 +2691,7 @@ def phase_running(k1_count) -> dict:
 
 def phase_constraints(k1_count) -> dict:
     """Hartmann-20D with ``sum(x) - 10 <= 0`` through ``constraints_func``:
-    4 asks from 1000 seeded trials that carry constraint attrs, 2 from
+    2 asks from 1000 seeded trials that carry constraint attrs, 2 from
     4000 (K1 twice an ask: the objective's and the constraint's sparse
     fits)."""
     import torch
@@ -2677,7 +2700,7 @@ def phase_constraints(k1_count) -> dict:
     from optuna_tpu_torch.samplers import GPSampler
 
     out = {}
-    for n_seeded, asks, k1_each in ((1000, 4, 0), (4000, 2, 2)):
+    for n_seeded, asks, k1_each in ((1000, 2, 0), (4000, 2, 2)):  # 4 asks from 1000 before phase 34
         study = seeded_study(n_seeded, constraint=True, constraints_func=sum_constraint)
         n0 = len(study.get_trials(deepcopy=False))
         wraps = _Spy(GPSampler, "_wrap_constraints", lambda a, kw, o: o[0])
@@ -2771,7 +2794,7 @@ def first_proposal(objective, dim: int, n_obj: int, n0: int, device: str) -> tup
 
 
 def phase_mo_gp(k1_count) -> dict:
-    """LogEHVI on the card: ZDT1 (30 variables, 2 objectives) 5 asks from
+    """LogEHVI on the card: ZDT1 (30 variables, 2 objectives) 3 asks from
     300 seeded trials, DTLZ2 (12 variables, 3 objectives) 3 asks from 200;
     the box count, s an ask, the kernels of one more ask and the
     synchronizing calls of another; then one ask on the card and one on the CPU from the same
@@ -2783,7 +2806,7 @@ def phase_mo_gp(k1_count) -> dict:
     from optuna_tpu_torch.models.benchmarks import zdt1
 
     routes = (
-        ("ZDT1", lambda t: zdt1(t, dim=ZDT_DIM), ZDT_DIM, 2, ZDT_GP_FROM, 5),
+        ("ZDT1", lambda t: zdt1(t, dim=ZDT_DIM), ZDT_DIM, 2, ZDT_GP_FROM, 3),  # 5 asks before phase 34
         ("DTLZ2", lambda t: dtlz2(t), DTLZ2_DIM, 3, DTLZ_GP_FROM, 3),
     )
     out = {}
@@ -3610,6 +3633,387 @@ def phase_analysis(k1_count, stack) -> dict:
             "k1": terminator["k1"] + callbacks["k1"], "k3": hv["k3"], "figures_s": figures_s, "cli_s": cli_s}
 
 
+# ---------------------------- phase 34: the doctor and the autopilot on config #2's scan
+
+AUTOPILOT_HISTORY = 1100  # config #2's space at full width, bucket 2048: every chunk of 32 is SGPR
+AUTOPILOT_SYNC = 32
+AUTOPILOT_M = 128  # n_inducing; gp.densify doubles it to N_INDUCING_MAX (256)
+# Chunk k+1 is dispatched before chunk k syncs, so a decision at chunk 0's sync
+# shapes chunk 2, and a verdict rollback_after tells later (chunk 2's sync)
+# shapes chunk 4: five chunks, and a verdict that reads chunk 2's error at m = 256.
+AUTOPILOT_TRIALS = 5 * AUTOPILOT_SYNC
+AUTOPILOT_ROLLBACK_AFTER = 2 * AUTOPILOT_SYNC
+AUTOPILOT_TWIN_TRIALS = AUTOPILOT_SYNC  # one SGPR chunk a twin; the hooks' cost is timed in turns
+K1_SYMBOL = "matern52_gram_kernel"
+AUTOPILOT_WORKER = "chip-smoke-34"
+
+
+class ChunkK1Spy:
+    """K1's launches on the scan path by chunk: wraps the scan loop's
+    ``_chunk_draws`` (called once a chunk with its index, before the chunk
+    program) and ``gp.sparse.matern52_gram`` (K1's wrapper, which
+    ``sgpr_reduce`` calls), recording ``(chunk, inducing rows)`` for every
+    call on CUDA tensors. ``on_chunk(k)`` runs as chunk k starts."""
+
+    def __init__(self, on_chunk=None) -> None:
+        self.on_chunk = on_chunk
+        self.chunk = -1
+        self.calls: list[tuple[int, int]] = []
+
+    def __enter__(self) -> "ChunkK1Spy":
+        from optuna_tpu_torch.gp import sparse
+        from optuna_tpu_torch.parallel import scan_loop
+
+        self._draws, self._gram = scan_loop._chunk_draws, sparse.matern52_gram
+
+        def draws(key_seed, chunk_idx, *args, **kwargs):
+            self.chunk = chunk_idx
+            if self.on_chunk is not None:
+                self.on_chunk(chunk_idx)
+            return self._draws(key_seed, chunk_idx, *args, **kwargs)
+
+        def gram(x1, *args, **kwargs):
+            if x1.is_cuda:
+                self.calls.append((self.chunk, int(x1.shape[0])))
+            return self._gram(x1, *args, **kwargs)
+
+        scan_loop._chunk_draws, sparse.matern52_gram = draws, gram
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from optuna_tpu_torch.gp import sparse
+        from optuna_tpu_torch.parallel import scan_loop
+
+        scan_loop._chunk_draws, sparse.matern52_gram = self._draws, self._gram
+
+    def rows(self) -> dict[int, list[int]]:
+        out: dict[int, list[int]] = {}
+        for chunk, rows in self.calls:
+            out.setdefault(chunk, []).append(rows)
+        return out
+
+
+_PROM_LINE = r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(?P<labels>[^}]*)\})? (?P<value>\S+)$"
+_PROM_LABEL = r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"'
+
+
+def parse_exposition(text: str) -> int:
+    """Sample lines of a Prometheus exposition, each held to the grammar of
+    the reference's ``tests/test_telemetry.py::_parse_exposition``."""
+    import re
+
+    line_re, label_re = re.compile(_PROM_LINE), re.compile(_PROM_LABEL)
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        if m is None or (m.group("labels") and label_re.sub("", m.group("labels")).strip(", ")):
+            fail(f"phase 34: an exposition line breaks the grammar: {line!r}")
+        float(m.group("value"))
+        n += 1
+    return n
+
+
+def k1_in_chunk_range(trace: dict) -> tuple[int, int]:
+    """(K1 kernels in a profiler trace, those inside a ``scan.chunk`` range):
+    the kernel's launch (the runtime event of its correlation id) or, where
+    the trace has none, the kernel itself inside the range's span."""
+    events = trace.get("traceEvents", [])
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("ph") == "X" and e.get("name") == "optuna_tpu_torch.scan.chunk"]
+    kernels = [e for e in events if e.get("ph") == "X" and K1_SYMBOL in str(e.get("name", ""))
+               and e.get("cat") == "kernel"]
+    launches = {e.get("args", {}).get("correlation"): e for e in events
+                if e.get("cat") == "cuda_runtime" and e.get("args", {}).get("correlation") is not None}
+    inside = 0
+    for k in kernels:
+        at = launches.get(k.get("args", {}).get("correlation"), k)["ts"]
+        inside += any(lo <= at <= hi for lo, hi in ranges)
+    return len(kernels), inside
+
+
+def autopilot_policy(mode: str):
+    from optuna_tpu_torch.autopilot import AutopilotPolicy
+
+    return AutopilotPolicy(mode=mode, interval_s=0.0, overrides={"sparse_heldout_err_warn": 0.0},
+                           rollback_after=AUTOPILOT_ROLLBACK_AFTER, cooldown_s=3600.0)
+
+
+def hooks(on: bool) -> None:
+    """Telemetry, the flight recorder and the health reporter (at every sync)
+    all on, with fresh state, or all off."""
+    from optuna_tpu_torch import flight, health, telemetry
+
+    if on:
+        telemetry.enable(telemetry.MetricsRegistry())
+        flight.enable(flight.FlightRecorder(capacity=65536))
+        health.enable(interval_s=0.0, worker_id=AUTOPILOT_WORKER)
+    else:
+        health.disable()
+        flight.disable()
+        telemetry.disable()
+
+
+def autopilot_cli(url: str) -> tuple[dict, dict, float]:
+    """``optuna-tpu-torch doctor`` and ``autopilot`` over the sqlite file, each
+    in a process of its own (the two side by side), as a shell user runs them."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    procs = {
+        command: subprocess.Popen([sys.executable, "-m", "optuna_tpu_torch.cli", command, "--storage", url,
+                                   "--study-name", "autopilot", "--format", "json"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for command in ("doctor", "autopilot")
+    }
+    out = {}
+    for command, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            fail(f"phase 34: cli {command} timed out")
+        if proc.returncode != 0:
+            fail(f"phase 34: cli {command}: exit {proc.returncode}: {stderr.strip()[-800:]}")
+        out[command] = json.loads(stdout)
+    return out["doctor"], out["autopilot"], time.perf_counter() - t0
+
+
+def autopilot_exports(study) -> dict:
+    """The act run's exports: the Chrome trace (chunk and sync spans, the
+    action events, the card's memory gauge), the Prometheus text (held to
+    the exposition grammar) and ``serve_metrics`` on a loopback port."""
+    import urllib.request
+
+    from optuna_tpu_torch import health, telemetry
+
+    trace = study.trace_snapshot()
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    actions = {e["name"] for e in trace["traceEvents"] if e["name"].startswith("autopilot.action.")}
+    gauges = [e for e in trace["traceEvents"] if e.get("ph") == "C" and e["name"] == "hbm.peak_bytes"]
+    if not {"scan.chunk", "scan.sync"} <= spans or "autopilot.action.gp.densify" not in actions or not gauges:
+        fail(f"phase 34: the trace holds spans {sorted(spans)}, actions {sorted(actions)}, {len(gauges)} "
+             "hbm.peak_bytes gauges")
+    text = telemetry.render_prometheus()
+    samples = parse_exposition(text)
+    if "optuna_tpu_autopilot_action_gp_densify_total 1" not in text:
+        fail("phase 34: the exposition lacks the gp.densify counter")
+    server = telemetry.serve_metrics(0, host="127.0.0.1",
+                                     health_source=lambda: health.storage_health_reports(study._storage))
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            served = r.read().decode()
+        with urllib.request.urlopen(base + "/health.json", timeout=60) as r:
+            reports = json.loads(r.read().decode())["reports"]
+    finally:
+        server.shutdown()
+        server.server_close()
+    if parse_exposition(served) < samples or [r["study"] for r in reports] != ["autopilot"]:
+        fail(f"phase 34: /metrics served {parse_exposition(served)} samples, /health.json studies "
+             f"{[r['study'] for r in reports]}")
+    return {"trace_events": len(trace["traceEvents"]), "samples": samples,
+            "hbm_peak_bytes": gauges[-1]["args"]["value"], "health_findings": [f["check"] for f in reports[0]["findings"]]}
+
+
+def autopilot_batched() -> dict:
+    """``AutopilotChaosPlan`` through ``optimize_vectorized(autopilot=...)`` on
+    the card: its NaN proposals under GuardedSampler, its NaN batch slots,
+    its constant seeded history, 24 trials in batches of 8."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import flight, telemetry
+    from optuna_tpu_torch.autopilot import AutopilotPolicy
+    from optuna_tpu_torch.distributions import FloatDistribution
+    from optuna_tpu_torch.parallel import optimize_vectorized
+    from optuna_tpu_torch.samplers import RandomSampler
+    from optuna_tpu_torch.samplers._resilience import GuardedSampler
+    from optuna_tpu_torch.testing import fault_injection as fi
+
+    plan = fi.autopilot_chaos_plan()
+    space = {"x": FloatDistribution(0.0, 1.0)}
+    telemetry.enable(telemetry.MetricsRegistry())
+    flight.enable(flight.FlightRecorder())
+    try:
+        sampler = GuardedSampler(fi.FaultySampler(RandomSampler(seed=0), nan_at=set(plan.sampler_nan_at),
+                                                  force_relative=True))
+        study = ot.create_study(sampler=sampler)
+        fi.PATHOLOGICAL_HISTORY_PLANS[plan.seeded_history_plan].populate(study, space, seed=0)
+        obj = fi.FaultyVectorizedObjective(lambda p: (p["x"] - 0.3) ** 2 + 1.0, space, nan_at=dict(plan.nan_slots))
+        t0 = time.perf_counter()
+        optimize_vectorized(study, obj, n_trials=plan.n_trials, batch_size=plan.batch_size,
+                            autopilot=AutopilotPolicy(mode="act", interval_s=0.0, cooldown_s=plan.cooldown_s,
+                                                      budget=plan.budget, rollback_after=plan.rollback_after,
+                                                      pin_trials=plan.pin_trials,
+                                                      overrides={"stagnation_window": plan.stagnation_window}))
+        seconds = time.perf_counter() - t0
+    finally:
+        telemetry.disable()
+        flight.disable()
+    records = study.__dict__["_autopilot"].report()["actions"]
+    states = {r["action"]: r["state"] for r in records}
+    running = sum(t.state == ot.TrialState.RUNNING for t in study.trials)
+    if sorted(r["action"] for r in records) != sorted(plan.expected_actions) or \
+            states[plan.rollback_action] != "rolled_back" or running:
+        fail(f"phase 34: the batched chaos plan decided {states} with {running} RUNNING, expected each of "
+             f"{plan.expected_actions} once and {plan.rollback_action} rolled back")
+    if obj.dispatch_widths != [plan.batch_size] * (plan.n_trials // plan.batch_size):
+        fail(f"phase 34: the batched plan dispatched widths {obj.dispatch_widths}")
+    return {"states": states, "s": seconds}
+
+
+def phase_autopilot(k1_count) -> dict:
+    """Phase 34 (see the module docstring)."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import _device_policy, _tracing, autopilot, flight, telemetry
+    from optuna_tpu_torch.parallel import optimize_scan
+    from optuna_tpu_torch.samplers import RandomSampler
+
+    t_phase = time.perf_counter()
+    latency = _device_policy.default_dispatch_latency_s()
+    routed = _device_policy.small_kernel_device()
+    if routed.type != "cuda":
+        fail(f"phase 34: the device policy routes small kernels to {routed} (round trip {latency * 1e3:.3f} ms)")
+    print(f"phase 34 device policy: the card's round trip {latency * 1e3:.4f} ms (best of 3): small kernels on {routed}")
+
+    objective = scan_objective()
+    kwargs = dict(sync_every=AUTOPILOT_SYNC, seed=0, n_exact_max=1024, n_inducing=AUTOPILOT_M)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+    logdir = os.path.join(tmp, "trace")
+    try:
+        history = history_trials(AUTOPILOT_HISTORY)
+        urls = {run: f"sqlite:///{os.path.join(tmp, run + '.db')}" for run in ("act", "observe", "off", "bare", "bare2")}
+        t0 = time.perf_counter()
+        for url in urls.values():
+            ot.create_study(storage=url, study_name="autopilot", sampler=RandomSampler(seed=0)).add_trials(history)
+        seed_s = (time.perf_counter() - t0) / len(urls)
+
+        # ------------------------------------------------ the act run, traced at chunk 2
+        tracing = {}
+
+        def on_chunk(k):
+            if k == 2:
+                tracing["cm"] = _tracing.trace(logdir)
+                tracing["cm"].__enter__()
+            elif k == 3 and "cm" in tracing:
+                tracing.pop("cm").__exit__(None, None, None)
+
+        hooks(True)
+        k1_before = k1_count()
+        try:
+            study = ot.Study("autopilot", urls["act"], sampler=RandomSampler(seed=0),
+                             autopilot=autopilot_policy("act"))
+            with ChunkK1Spy(on_chunk) as spy:
+                t0 = time.perf_counter()
+                optimize_scan(study, objective, AUTOPILOT_TRIALS, **kwargs)
+                torch.cuda.synchronize()
+                act_s = time.perf_counter() - t0
+            if "cm" in tracing:
+                tracing.pop("cm").__exit__(None, None, None)
+            k1_act = k1_count() - k1_before
+            phases = telemetry.phase_totals()
+            # Each chunk's seconds from the flight recorder's scan.chunk spans, in order.
+            chunk_s = [ev.dur for ev in flight.events() if ev.kind == "phase" and ev.name == "scan.chunk"]
+            exports = autopilot_exports(study)
+            postmortem = flight.last_postmortem_path()
+        finally:
+            hooks(False)
+        records = study.__dict__["_autopilot"].report()["actions"]
+        densify = [r for r in records if r["action"] == "gp.densify"]
+        if len(densify) != 1 or densify[0]["state"] not in ("held", "rolled_back"):
+            fail(f"phase 34: the act run's gp.densify records are {densify} (all: {records})")
+        decision = densify[0]
+        verdict = decision["state"]
+        m_after = 2 * AUTOPILOT_M if verdict == "held" else AUTOPILOT_M
+        want_rows = {0: [AUTOPILOT_M], 1: [AUTOPILOT_M], 2: [2 * AUTOPILOT_M], 3: [2 * AUTOPILOT_M], 4: [m_after]}
+        rows = {k: sorted(set(v)) for k, v in spy.rows().items()}
+        if rows != want_rows or len(spy.calls) != k1_act:
+            fail(f"phase 34: K1's inducing rows by chunk {rows}, expected {want_rows}; {len(spy.calls)} calls "
+                 f"and {k1_act} launches")
+        if study._scan_gp_control["n_inducing"] != m_after or postmortem is not None:
+            fail(f"phase 34: the control dict {study._scan_gp_control} after a {verdict} verdict "
+                 f"(postmortem {postmortem})")
+        n_k1, k1_inside = k1_in_chunk_range(json.loads(open(_tracing.last_trace_path).read()))
+        if n_k1 < 1 or k1_inside != n_k1:
+            fail(f"phase 34: the profiler trace of chunk 2 holds {n_k1} K1 kernels, {k1_inside} inside scan.chunk")
+        mirror = {k: v for k, v in ot.load_study(study_name="autopilot", storage=urls["act"]).system_attrs.items()
+                  if k.startswith(autopilot.ACTION_ATTR_PREFIX)}
+        if not any(v["action"] == "gp.densify" and v["state"] == verdict for v in mirror.values()):
+            fail(f"phase 34: the sqlite mirror holds {mirror}")
+        doctor, audit, cli_s = autopilot_cli(urls["act"])
+        err = doctor["fleet"]["gauges"].get("device.gp.sparse_heldout_err.last")
+        listed = "gp.sparse_degraded" in {f["check"] for f in doctor["findings"]}
+        if err is None or listed != (err >= 1.0):
+            fail(f"phase 34: the doctor's fleet gauge is {err} and it lists gp.sparse_degraded: {listed} (the "
+                 "CLI's threshold is the default, 1.0)")
+        (loop,) = audit["autopilots"]
+        if [(r["action"], r["state"]) for r in loop["actions"] if r["action"] == "gp.densify"] != [
+                ("gp.densify", verdict)]:
+            fail(f"phase 34: `optuna-tpu-torch autopilot` lists {loop['actions']}")
+
+        # --------------------- twins, in turns: all hooks off, observe, autopilot off, all hooks off
+        twins, twin_s, twin_k1, observe_records = {}, {}, {}, []
+        for run in ("bare", "observe", "off", "bare2"):
+            hooks(not run.startswith("bare"))
+            k1_before = k1_count()
+            try:
+                twin = ot.Study("autopilot", urls[run], sampler=RandomSampler(seed=0),
+                                autopilot=autopilot_policy("observe") if run == "observe" else None)
+                t0 = time.perf_counter()
+                optimize_scan(twin, objective, AUTOPILOT_TWIN_TRIALS, **kwargs)
+                torch.cuda.synchronize()
+                twin_s[run] = time.perf_counter() - t0
+            finally:
+                hooks(False)
+            twin_k1[run] = k1_count() - k1_before
+            twins[run] = [(t.params, t.values) for t in twin.get_trials(deepcopy=False)[AUTOPILOT_HISTORY:]]
+            if run == "observe":
+                observe_records = twin.__dict__["_autopilot"].report()["actions"]
+        if not (twins["bare"] == twins["observe"] == twins["off"] == twins["bare2"]) or \
+                len(twins["bare"]) != AUTOPILOT_TWIN_TRIALS:
+            fail("phase 34: the observe, autopilot-off and all-hooks-off twins part")
+        first = [(r["action"], r["check"], r["evidence"], r["state"]) for r in observe_records
+                 if r["action"] == "gp.densify"]
+        # Observe records decide and execute nothing (no_target: a finding whose knob this loop lacks).
+        if first != [(decision["action"], decision["check"], decision["evidence"], "observed")] or \
+                not {r["state"] for r in observe_records} <= {"observed", "no_target"}:
+            fail(f"phase 34: the observe twin decided {observe_records}, the act run first {decision}")
+        if any(k.startswith(autopilot.ACTION_ATTR_PREFIX) for k in
+               ot.load_study(study_name="autopilot", storage=urls["observe"]).system_attrs):
+            fail("phase 34: the observe twin mirrored a decision into storage")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batched = autopilot_batched()
+
+    chunk = phases.get("scan.chunk", {})
+    per_chunk = {"on": (twin_s["observe"] + twin_s["off"]) / 2, "off": (twin_s["bare"] + twin_s["bare2"]) / 2}
+    k1 = k1_act + sum(twin_k1.values())
+    seconds = time.perf_counter() - t_phase
+    print(
+        f"phase 34, the doctor and the autopilot on config #2's scan (Hartmann-20D, {AUTOPILOT_HISTORY} seeded on "
+        f"sqlite in {seed_s:.3f} s, chunks of {AUTOPILOT_SYNC}, n_exact_max {kwargs['n_exact_max']}, m {AUTOPILOT_M}): act run "
+        f"{AUTOPILOT_TRIALS} trials in {act_s:.3f} s ({int(chunk.get('count', 0))} chunks, scan.chunk "
+        f"{chunk.get('total_s', 0.0):.4f} s, scan.sync {phases.get('scan.sync', {}).get('total_s', 0.0):.4f} s, chunk "
+        f"2 profiled; s a chunk by the flight recorder {[round(x, 4) for x in chunk_s]}); gp.densify decided at chunk 0's sync on held-out error {decision['evidence']['heldout_err']:.6f}"
+        f", {verdict} at chunk 2's sync (rollback_after {AUTOPILOT_ROLLBACK_AFTER}); K1's inducing rows by chunk "
+        f"{rows}; the profiler trace holds {n_k1} K1 kernel(s) ({K1_SYMBOL}), all inside scan.chunk; mirror "
+        f"{sorted((v['action'], v['state']) for v in mirror.values())}; CLI doctor and autopilot {cli_s:.2f} s (two "
+        f"processes), doctor findings {sorted(f['check'] for f in doctor['findings'])} at fleet held-out error "
+        f"{err:.6f}; exports: {exports['trace_events']} trace events, {exports['samples']} exposition samples, "
+        f"hbm.peak_bytes {exports['hbm_peak_bytes']:.0f}; twins of one SGPR chunk ({AUTOPILOT_TWIN_TRIALS} trials) "
+        f"identical, in turns: all hooks off {twin_s['bare']:.4f} s, observe {twin_s['observe']:.4f} s, autopilot "
+        f"off {twin_s['off']:.4f} s, all hooks off {twin_s['bare2']:.4f} s: an SGPR chunk with every hook on "
+        f"{per_chunk['on']:.4f} s, every hook off {per_chunk['off']:.4f} s, the hooks "
+        f"{per_chunk['on'] - per_chunk['off']:.4f} s a chunk; batched chaos plan on the card "
+        f"{batched['states']} in {batched['s']:.3f} s; K1 {k1} (act {k1_act}, twins {twin_k1}); phase "
+        f"{seconds:.1f} s"
+    )
+    return {"k1": k1, "verdict": verdict, "s": seconds, "per_chunk": per_chunk, "act_s": act_s, "chunk_s": chunk_s}
+
+
 def main() -> None:
     try:
         import torch
@@ -3735,6 +4139,12 @@ def main() -> None:
     analysis = phase_analysis(k1_count, wrappers["wfg_stack"])
     analysis_counts = counts()
     print(f"analysis phase 33: {time.perf_counter() - t_analysis:.1f} s, set-up and checks included")
+    reset()
+    control = phase_autopilot(k1_count)
+    control_counts = counts()
+    print(f"observability and control phase 34: {control['s']:.1f} s, set-up and checks included")
+    if control_counts["matern52_gram"] != control["k1"] or any(v for k, v in control_counts.items() if k != "matern52_gram"):
+        fail(f"phase 34 launched {control_counts}, expected K1 {control['k1']} and no other kernel")
     want_analysis = dict.fromkeys(analysis_counts, 0)
     want_analysis.update(matern52_gram=analysis["k1"], wfg_stack=analysis["k3"])
     if analysis_counts != want_analysis:
@@ -3756,7 +4166,7 @@ def main() -> None:
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
         + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"] + resume_counts["matern52_gram"]
-        + analysis_counts["matern52_gram"],
+        + analysis_counts["matern52_gram"] + control_counts["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
@@ -3775,7 +4185,8 @@ def main() -> None:
         f"{constrained[4000]['k1']}, LogEHVI 0; phase 31: K1 {gp_batches['k1']} over {GP_BATCHES} batches; "
         f"phase 32: K1 {resume['k1']} over the killed, resumed and twin scans; phase 33: K1 {analysis['k1']} = "
         f"terminator {analysis['terminator']['k1']} + GP study with the callback {analysis['callbacks']['k1']}, "
-        f"K3 {analysis['k3']} over the hypervolume history's routed prefixes)"
+        f"K3 {analysis['k3']} over the hypervolume history's routed prefixes; phase 34: K1 {control['k1']} over the "
+        f"act run's 5 SGPR chunks and the twins' 4, swap-ins included)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -3791,7 +4202,7 @@ def main() -> None:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
     paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
-             batch_counts, gp_batch_counts, resume_counts, analysis_counts)
+             batch_counts, gp_batch_counts, resume_counts, analysis_counts, control_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -3828,6 +4239,8 @@ def main() -> None:
         f"{analysis['importance']['fANOVA']['cpu_s'] * 1e3:.1f}), regret bound "
         f"{analysis['terminator']['RegretBoundEvaluator']['card_s']:.3f} s (CPU torch "
         f"{analysis['terminator']['RegretBoundEvaluator']['cpu_s']:.3f}), "
+        f"autopilot scan {control['per_chunk']['on']:.3f} s an SGPR chunk with every hook on, "
+        f"{control['per_chunk']['off']:.3f} with every hook off (gp.densify {control['verdict']}), "
         f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))

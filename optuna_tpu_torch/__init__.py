@@ -35,6 +35,15 @@ card, stagnation, the error evaluators, ``TerminatorCallback``),
 ``visualization`` (plotly-schema figures and a matplotlib mirror),
 ``artifacts``, ``cli`` and ``integration``.
 
+Observability and control run on the host beside every path: ``telemetry``
+(metrics and their Prometheus and JSON exports, ``serve_metrics``),
+``flight`` (the per-trial timeline, Chrome-trace export, postmortems),
+``health`` (the study doctor over the workers' snapshots in storage),
+``slo`` (latency objectives and burn rates), ``autopilot`` (the doctor's
+findings answered by guarded, reversible actions, ``gp.densify`` among
+them) and ``_tracing`` (``torch.profiler`` traces of a run); each is off
+until enabled, in code or by an ``OPTUNA_TPU_TORCH_*`` switch.
+
 Every TPU kernel these paths reach is a hand-written CUDA kernel for Hopper
 (``ops/kernels/csrc``): the Matérn-5/2 cross-covariance, the
 non-domination ranking (NSGA-II, and MOTPE's split), the WFG hypervolume
@@ -45,6 +54,12 @@ of moving to the CPU.
 """
 
 from optuna_tpu_torch import _device  # noqa: F401  (TF32 off before any tensor work)
+from optuna_tpu_torch.utils._compile_cache import ensure_compile_cache as _ensure_compile_cache
+
+# The kernels' build directory: OPTUNA_TPU_TORCH_CACHE_DIR, or a fresh
+# temporary one under OPTUNA_TPU_TORCH_NO_COMPILE_CACHE=1 (no-op otherwise).
+_ensure_compile_cache()
+
 from optuna_tpu_torch import distributions, exceptions, importance, logging, pruners, samplers
 from optuna_tpu_torch import search_space, storages, study, trial, utils
 from optuna_tpu_torch import parallel  # after study and trial: the scan loop builds trials

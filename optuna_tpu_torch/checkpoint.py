@@ -82,9 +82,8 @@ CHECKPOINT_EVENTS: dict[str, str] = {
 
 
 def _count(event: str, meta: dict | None = None) -> None:
-    # ``meta`` is the reference's context for its flight-recorder sink, which
-    # the port does not have yet (ROADMAP A11); the counter is what counts.
-    telemetry.count("checkpoint." + event)
+    # ``meta`` rides to the flight recorder's timeline event only.
+    telemetry.count("checkpoint." + event, meta=meta)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,9 +7,11 @@ json/table/yaml output formats (``:156-273``), over the port's storages
 ``trajectory`` rendering of the committed perf ledger
 (``BENCH_TRAJECTORY.json``, stdlib only).
 
-The reference's ``metrics``, ``trace``, ``doctor``, ``autopilot`` and ``slo``
-read modules the port has not yet ported (:data:`NOT_YET_PORTED`): they keep
-the reference's flags and exit 2 naming their ROADMAP item.
+The observability commands read the port's own modules: ``metrics``
+(telemetry), ``trace`` (the flight recorder), ``doctor`` (the study doctor
+over ``--storage``, or ``/health.json`` endpoints), ``autopilot`` (the
+act-mode audit mirror in ``--storage``, or ``/autopilot.json``) and
+``slo``, with the reference's flags and output shapes.
 
 Entry points: ``python -m optuna_tpu_torch.cli ...`` or the
 ``optuna-tpu-torch`` console script. ``ask`` runs the study's sampler, which
@@ -220,24 +222,331 @@ def _cmd_tell(args: argparse.Namespace) -> None:
     )
 
 
-#: The reference's commands whose modules the port has not yet ported, with
-#: the ROADMAP item that owns each. They keep their flags in the parser and
-#: exit 2 with a message naming the item, as a ``grpc://`` URL raises naming A9.
-NOT_YET_PORTED = {
-    "metrics": ("A11", "the telemetry exports (render_prometheus, export_snapshot)"),
-    "trace": ("A11", "the flight recorder"),
-    "doctor": ("A11", "the study doctor (health)"),
-    "autopilot": ("A11", "the autopilot"),
-    "slo": ("A9", "the SLO engine of the serve tier"),
-}
+#: The reference's commands the port does not carry yet, with the ROADMAP
+#: item that owns each: none.
+NOT_YET_PORTED: dict[str, tuple[str, str]] = {}
 
 
-def _cmd_not_yet_ported(args: argparse.Namespace) -> None:
-    item, what = NOT_YET_PORTED[args.command]
-    raise CLIUsageError(
-        f"`{args.command}` needs {what}, which optuna_tpu_torch does not port yet "
-        f"(ROADMAP item {item})."
-    )
+def _cmd_metrics(args: argparse.Namespace) -> None:
+    """Dump the telemetry registry (see :mod:`optuna_tpu_torch.telemetry`).
+
+    Without ``--endpoint`` the dump is this process's registry — empty unless
+    ``OPTUNA_TPU_TORCH_TELEMETRY`` was set or the invoked workflow recorded
+    something; with ``--endpoint`` it is fetched from a serving process
+    (``telemetry.serve_metrics``), which is where a live study's numbers
+    actually accumulate.
+    """
+    from optuna_tpu_torch import telemetry
+
+    if args.endpoint:
+        import urllib.request
+
+        base = args.endpoint.rstrip("/")
+        path = "/metrics.json" if args.format == "json" else "/metrics"
+        if base.endswith("/metrics.json") or base.endswith("/metrics"):
+            # A full path pins the format; a silent mismatch would hand
+            # Prometheus text to a JSON consumer (or vice versa).
+            implied = "json" if base.endswith("/metrics.json") else "prom"
+            if implied != args.format:
+                raise CLIUsageError(
+                    f"endpoint path {base!r} serves {implied!r} but "
+                    f"--format={args.format}; pass the matching --format or "
+                    "give the base URL (e.g. http://host:9090) and let the "
+                    "format pick the path."
+                )
+            url = base
+        else:
+            url = base + path
+        with urllib.request.urlopen(url, timeout=10) as response:
+            print(response.read().decode(), end="")
+        return
+    if args.format == "json":
+        # export_snapshot: the registry plus the flight recorder's per-label
+        # jit compile/retrace totals — host phases, device.* stat gauges and
+        # compile counts on one surface (mirrors /metrics.json).
+        print(json.dumps(telemetry.export_snapshot(), sort_keys=True))
+    else:
+        print(telemetry.render_prometheus(), end="")
+
+
+def _cmd_trace(args: argparse.Namespace) -> None:
+    """Dump the flight recorder's timeline (see :mod:`optuna_tpu_torch.flight`).
+
+    ``--format=chrome`` (default) emits Chrome trace-event JSON — open it in
+    Perfetto or ``chrome://tracing``; ``--format=events`` emits the raw
+    structured event list. ``--trial N`` filters the dump to one trial's
+    events plus their parent spans — the single-trial postmortem slice,
+    instead of the whole ring. Without ``--endpoint`` the dump is this
+    process's recorder — empty unless ``OPTUNA_TPU_TORCH_FLIGHT`` was set; with
+    ``--endpoint`` it is fetched from a serving process's ``/trace.json``
+    (``telemetry.serve_metrics``), which is where a live fleet's
+    stitched timeline actually accumulates. ``--output`` writes to a file
+    instead of stdout (the natural hand-off to a Perfetto tab).
+    """
+    from optuna_tpu_torch import flight
+
+    if args.endpoint:
+        import urllib.request
+
+        base = args.endpoint.rstrip("/")
+        url = base if base.endswith("/trace.json") else base + "/trace.json"
+        if args.format != "chrome":
+            raise CLIUsageError(
+                "--endpoint serves Chrome trace JSON only; drop --format or "
+                "pass --format=chrome."
+            )
+        with urllib.request.urlopen(url, timeout=10) as response:
+            payload = response.read().decode()
+        if args.trial is not None:
+            payload = json.dumps(
+                flight.filter_chrome_trace(json.loads(payload), args.trial)
+            )
+    else:
+        if args.format == "chrome":
+            flight.sample_device_gauges()  # before the read, so it exports
+        events = flight.events()
+        if args.trial is not None:
+            events = flight.filter_trial(events, args.trial)
+        if args.format == "chrome":
+            payload = json.dumps(flight.chrome_trace(events))
+        else:
+            payload = json.dumps([ev.to_dict() for ev in events])
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(payload)
+            f.write("\n")
+        print(args.output)
+    else:
+        print(payload)
+
+
+def _fetch_hub_report(endpoint: str, study_name: str) -> dict:
+    """One hub's ``/health.json`` report for one study, or raise."""
+    import urllib.request
+
+    base = endpoint.rstrip("/")
+    url = base if base.endswith("/health.json") else base + "/health.json"
+    with urllib.request.urlopen(url, timeout=10) as response:
+        payload = json.loads(response.read().decode())
+    if payload.get("enabled") is False:
+        # The structured not-armed payload (vs a 404 for a typo'd
+        # path): the process is reachable but has no storage to
+        # aggregate fleet reports over.
+        raise CLIUsageError(
+            f"the endpoint {endpoint!r} doctor is not armed: "
+            + payload.get("reason", "no health_source on that process")
+        )
+    reports = payload.get("reports", [])
+    report = next((r for r in reports if r.get("study") == study_name), None)
+    if report is None:
+        known = sorted(r.get("study") for r in reports)
+        raise CLIUsageError(
+            f"endpoint {endpoint!r} serves no study named {study_name!r} "
+            f"(it has: {known})."
+        )
+    return report
+
+
+def _merge_hub_reports(
+    by_hub: dict[str, dict], unreachable: list[str]
+) -> dict:
+    """Fold per-hub doctor reports into one fleet-wide report.
+
+    Hubs share the journal storage, so each report is the same computation
+    taken at a slightly different instant — the freshest one is the base.
+    Findings are unioned by check id, each tagged with the hubs that raised
+    it, so a verdict only one hub can see (e.g. the survivor that declared
+    ``service.hub_dead``) is never lost to a staler base report.
+    """
+    base = max(by_hub.values(), key=lambda r: r.get("generated_unix", 0.0))
+    merged = dict(base)
+    findings: dict[str, dict] = {}
+    seen_at: dict[str, list[str]] = {}
+    for hub, report in sorted(by_hub.items()):
+        for finding in report.get("findings", ()):
+            check = finding.get("check", "?")
+            findings.setdefault(check, dict(finding))
+            seen_at.setdefault(check, []).append(hub)
+    for check, finding in findings.items():
+        finding["hubs"] = seen_at[check]
+    merged["findings"] = [findings[c] for c in sorted(findings)]
+    merged["healthy"] = not merged["findings"]
+    merged["hub_endpoints"] = {
+        "reachable": sorted(by_hub),
+        "unreachable": sorted(unreachable),
+    }
+    return merged
+
+
+def _cmd_doctor(args: argparse.Namespace) -> None:
+    """The study doctor's report (see :mod:`optuna_tpu_torch.health`).
+
+    Without ``--endpoint`` the study is loaded from ``--storage`` and the
+    report computed in this process (the fleet view lives in the study's
+    system attrs, so any worker or operator shell can run the doctor);
+    with ``--endpoint`` the report is fetched from a serving process's
+    ``/health.json`` (``telemetry.serve_metrics``). A single endpoint
+    is that one hub's view; against a hub fleet pass every hub
+    comma-separated (``--endpoint hub-a:8081,hub-b:8081``) and the reports
+    are merged — findings unioned by check and tagged with the hubs that
+    raised them, unreachable hubs listed rather than fatal (the survivors'
+    ``service.hub_dead`` verdict is exactly what you came for).
+    """
+    from optuna_tpu_torch import health
+
+    if args.endpoint:
+        endpoints = [e.strip() for e in args.endpoint.split(",") if e.strip()]
+        if len(endpoints) == 1:
+            report = _fetch_hub_report(endpoints[0], args.study_name)
+        else:
+            by_hub: dict[str, dict] = {}
+            unreachable: list[str] = []
+            usage_errors: list[CLIUsageError] = []
+            for endpoint in endpoints:
+                try:
+                    by_hub[endpoint] = _fetch_hub_report(
+                        endpoint, args.study_name
+                    )
+                except CLIUsageError as err:
+                    # Reachable but not serving this study / not armed:
+                    # a configuration problem, not a dead hub.
+                    usage_errors.append(err)
+                except OSError:
+                    unreachable.append(endpoint)
+            if usage_errors:
+                raise usage_errors[0]
+            if not by_hub:
+                raise CLIUsageError(
+                    "no hub endpoint was reachable "
+                    f"(tried: {sorted(unreachable)})."
+                )
+            report = _merge_hub_reports(by_hub, unreachable)
+    else:
+        storage = _storage(args)
+        study_id = storage.get_study_id_from_name(args.study_name)
+        report = health.health_report(
+            storage, study_id, study_name=args.study_name
+        )
+    if args.format == "json":
+        print(json.dumps(report, sort_keys=True))
+    else:
+        from optuna_tpu_torch import autopilot
+
+        # "would act" column: when an autopilot policy is configured in
+        # this process (OPTUNA_TPU_TORCH_AUTOPILOT / autopilot.enable()), each
+        # finding shows the guarded action the control loop would take.
+        would_act = (
+            {check: autopilot.action_for(check) for check in health.HEALTH_CHECKS}
+            if autopilot.enabled()
+            else None
+        )
+        print(health.render_text(report, would_act=would_act))
+
+
+def _cmd_autopilot(args: argparse.Namespace) -> None:
+    """The autopilot's action log (see :mod:`optuna_tpu_torch.autopilot`).
+
+    Without ``--endpoint`` the log is reconstructed from the study's
+    ``autopilot:action:*`` system attrs in ``--storage`` (the act-mode
+    audit mirror, so any operator shell can read what an unattended run
+    did); with ``--endpoint`` it is fetched live from a serving process's
+    ``/autopilot.json``, which additionally carries budget and cooldown
+    clocks only the owning process knows.
+    """
+    from optuna_tpu_torch import autopilot
+
+    if args.endpoint:
+        import urllib.request
+
+        base = args.endpoint.rstrip("/")
+        url = base if base.endswith("/autopilot.json") else base + "/autopilot.json"
+        with urllib.request.urlopen(url, timeout=10) as response:
+            report = json.loads(response.read().decode())
+        if args.study_name:
+            report["autopilots"] = [
+                p for p in report.get("autopilots", [])
+                if p.get("study") == args.study_name
+            ]
+    else:
+        if not args.study_name:
+            raise CLIUsageError(
+                "--study-name is required without --endpoint (the storage "
+                "mirror is per-study)."
+            )
+        storage = _storage(args)
+        study_id = storage.get_study_id_from_name(args.study_name)
+        records = sorted(
+            (
+                value
+                for key, value in storage.get_study_system_attrs(study_id).items()
+                if key.startswith(autopilot.ACTION_ATTR_PREFIX)
+                and isinstance(value, dict)
+            ),
+            key=lambda record: record.get("seq", 0),
+        )
+        if not records:
+            # The storage mirror only holds act-mode decisions, so an empty
+            # mirror is ambiguous — no findings fired, the loop ran in
+            # observe mode, or no loop was armed. Say so instead of the
+            # "not armed" hint, which would tell an operator with a healthy
+            # act-mode study to re-enable something already running.
+            message = (
+                f"no autopilot actions recorded for study "
+                f"{args.study_name!r} (no findings fired, the loop ran in "
+                "observe mode, or no autopilot was armed — the storage "
+                "mirror only holds act-mode decisions; use --endpoint for "
+                "the live loop state)"
+            )
+            if args.format == "json":
+                print(json.dumps(
+                    {"enabled": None, "autopilots": [], "note": message},
+                    sort_keys=True,
+                ))
+            else:
+                print(message)
+            return
+        report = {
+            "enabled": True,
+            "generated_unix": None,
+            "autopilots": [
+                {
+                    "study": args.study_name,
+                    "mode": records[-1].get("mode"),
+                    "actions": records,
+                }
+            ],
+        }
+    if args.format == "json":
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(autopilot.render_text(report))
+
+
+def _cmd_slo(args: argparse.Namespace) -> None:
+    """The SLO engine's report (see :mod:`optuna_tpu_torch.slo`).
+
+    Without ``--endpoint`` the report is this process's engine — disabled
+    unless ``OPTUNA_TPU_TORCH_SLO`` was set or the invoked workflow armed it;
+    with ``--endpoint`` it is fetched from a serving process's ``/slo.json``
+    (``telemetry.serve_metrics``), which is where a live serving
+    hub's quantiles and burn rates actually accumulate — byte-for-byte the
+    same shape either way.
+    """
+    from optuna_tpu_torch import slo
+
+    if args.endpoint:
+        import urllib.request
+
+        base = args.endpoint.rstrip("/")
+        url = base if base.endswith("/slo.json") else base + "/slo.json"
+        with urllib.request.urlopen(url, timeout=10) as response:
+            report = json.loads(response.read().decode())
+    else:
+        report = slo.export_report()
+    if args.format == "json":
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(slo.render_text(report))
 
 
 def _find_trajectory_file() -> str | None:
@@ -454,7 +763,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampler-kwargs", default=None)
     p.add_argument("--search-space", default=None)
 
-    p = add("metrics", _cmd_not_yet_ported)
+    p = add("metrics", _cmd_metrics)
     p.add_argument("-f", "--format", default="json", choices=["json", "prom"])
     p.add_argument(
         "--endpoint",
@@ -463,7 +772,7 @@ def _build_parser() -> argparse.ArgumentParser:
         "this process's registry",
     )
 
-    p = add("trace", _cmd_not_yet_ported)
+    p = add("trace", _cmd_trace)
     p.add_argument("-f", "--format", default="chrome", choices=["chrome", "events"])
     p.add_argument(
         "--trial",
@@ -482,7 +791,7 @@ def _build_parser() -> argparse.ArgumentParser:
         "-o", "--output", default=None, help="write to this file instead of stdout"
     )
 
-    p = add("doctor", _cmd_not_yet_ported)
+    p = add("doctor", _cmd_doctor)
     p.add_argument("--study-name", required=True)
     p.add_argument("-f", "--format", default="text", choices=["text", "json"])
     p.add_argument(
@@ -494,7 +803,7 @@ def _build_parser() -> argparse.ArgumentParser:
         "reports (unreachable hubs are listed, not fatal)",
     )
 
-    p = add("autopilot", _cmd_not_yet_ported)
+    p = add("autopilot", _cmd_autopilot)
     p.add_argument(
         "--study-name",
         default=None,
@@ -509,7 +818,7 @@ def _build_parser() -> argparse.ArgumentParser:
         "http://host:9090) instead of reading the audit mirror from --storage",
     )
 
-    p = add("slo", _cmd_not_yet_ported)
+    p = add("slo", _cmd_slo)
     p.add_argument("-f", "--format", default="text", choices=["text", "json"])
     p.add_argument(
         "--endpoint",

@@ -1,6 +1,5 @@
 """Device-stats taps: what the device programs did, published at the host
-boundary (port of ``optuna_tpu/device_stats.py``; the flight-recorder
-events come with ROADMAP A11).
+boundary (port of ``optuna_tpu/device_stats.py``).
 
 **The convention.** A device program that has something to report returns
 a small stats struct beside its primary outputs: a plain dict of scalars
@@ -11,20 +10,24 @@ their verdict counts on the host).
 **The harness.** :func:`harvest` publishes one struct into telemetry
 gauges ``device.<stat>.<agg>`` (``max`` for high-water stats, ``total``
 for accumulating ones, also observed into a ``device.<stat>`` histogram,
-``last`` for point values). It reads each value once, after the caller
-has read the program's primary outputs. While telemetry is off it returns
-after one module-global check and allocates nothing.
+``last`` for point values), plus one flight ``gauge`` event per stat so
+the timeline shows when the device did the work. It reads each value once,
+after the caller has read the program's primary outputs. While telemetry
+and the flight recorder are both off it returns after module-global checks
+and allocates nothing.
 """
 
 from __future__ import annotations
 
 from typing import Mapping
 
-from optuna_tpu_torch import telemetry
+from optuna_tpu_torch import flight, telemetry
 
 __all__ = [
     "DEVICE_STATS",
     "STAT_AGGREGATIONS",
+    "enabled",
+    "gauge_name",
     "harvest",
     "stat_gauges",
 ]
@@ -77,14 +80,28 @@ STAT_AGGREGATIONS: dict[str, str] = {
 _GAUGE_PREFIX = "device."
 
 
-def harvest(stats: Mapping[str, object]) -> None:
+def enabled() -> bool:
+    """Whether a harvest would publish anywhere: the call sites' cheap
+    pre-check before building a stats mapping that only exists for
+    harvesting."""
+    return telemetry.enabled() or flight.enabled()
+
+
+def gauge_name(stat: str) -> str:
+    """The telemetry gauge a stat publishes to (``device.<stat>.<agg>``)."""
+    return f"{_GAUGE_PREFIX}{stat}.{STAT_AGGREGATIONS[stat]}"
+
+
+def harvest(stats: Mapping[str, object], trial: int | None = None) -> None:
     """Publish one program's device-stat struct at the host boundary.
 
     ``stats`` maps :data:`DEVICE_STATS` names to 0-dim tensors or plain
-    numbers; each value is read once (``float``). A no-op while telemetry
-    is disabled.
+    numbers; each value is read once (``float``). Per stat: the aggregated
+    gauge, a histogram observation for ``total`` stats, and one flight
+    ``gauge`` event (optionally trial-tagged). A no-op while telemetry and
+    flight are both disabled.
     """
-    if not telemetry.enabled():
+    if not telemetry.enabled() and not flight.enabled():
         return
     for name, value in stats.items():
         agg = STAT_AGGREGATIONS.get(name)
@@ -101,6 +118,7 @@ def harvest(stats: Mapping[str, object]) -> None:
             telemetry.observe(_GAUGE_PREFIX + name, v)
         else:  # "last"
             telemetry.set_gauge(gauge, v)
+        flight.event("gauge", _GAUGE_PREFIX + name, trial=trial, meta={"value": v})
 
 
 def stat_gauges(snapshot: Mapping | None = None) -> dict[str, float]:

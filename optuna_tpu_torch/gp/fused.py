@@ -311,3 +311,13 @@ def gp_suggest_chain_fused(
         "gp.best_acq": torch.max(vs_t),
     }
     return xs_t, vs_t, raw, stats
+
+
+# Compile/retrace gauges (optuna_tpu_torch.flight): a new history bucket or
+# start count is a new call signature of the fused programs, the place the
+# GP path pays again for a new shape. One check per call while recording is
+# off.
+from optuna_tpu_torch import flight as _flight  # noqa: E402 (gauge wiring below the programs)
+
+gp_suggest_fused = _flight.instrument_jit(gp_suggest_fused, "gp.suggest_fused")
+gp_suggest_chain_fused = _flight.instrument_jit(gp_suggest_chain_fused, "gp.suggest_chain_fused")

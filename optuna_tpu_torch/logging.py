@@ -139,3 +139,10 @@ def warn_once(logger: logging.Logger, key: str, message: str) -> bool:
         _warned_once_keys.add(dedupe_key)
     logger.warning(message)
     return True
+
+
+def reset_warn_once() -> None:
+    """Forget every ``warn_once`` key (tests; a long-lived service rotating
+    studies may also call it to re-arm the one-shot warnings)."""
+    with _warn_once_lock:
+        _warned_once_keys.clear()

@@ -8,7 +8,10 @@ load or lacks an entry point, raises :class:`KernelBuildError`.
 
 :func:`load` publishes a library only once ``ctypes`` has loaded it and its
 entry points are bound, under one lock, so threads that reach a kernel
-together build and load it once.
+together build and load it once. That first build and load is recorded as
+a compile under ``kernel.<source stem>`` (:func:`optuna_tpu_torch.flight.
+note_kernel_build`). ``utils._compile_cache`` may point :data:`BUILD_DIR`
+elsewhere when the package is imported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable
 
@@ -82,6 +86,8 @@ def load(source: str, bind: Callable[[ctypes.CDLL], object] | None = None) -> ct
     ``bind`` declares (``AttributeError``), raises :class:`KernelBuildError`."""
     with _lock:
         lib = _loaded.get(source)
+        first = lib is None
+        t0 = time.monotonic()
         try:
             if lib is None:
                 lib = ctypes.CDLL(str(build(source)))
@@ -90,4 +96,8 @@ def load(source: str, bind: Callable[[ctypes.CDLL], object] | None = None) -> ct
         except (OSError, AttributeError) as err:
             raise KernelBuildError(f"the library of {source} could not be loaded or bound: {err}") from err
         _loaded[source] = lib
-        return lib
+    if first:
+        from optuna_tpu_torch import flight
+
+        flight.note_kernel_build(Path(source).stem, time.monotonic() - t0)
+    return lib

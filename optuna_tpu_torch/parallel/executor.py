@@ -62,12 +62,14 @@ Where the card changes things:
   measured. :func:`run_with_deadline` is also ``GuardedSampler``'s fit
   deadline.
 
-Left out (ROADMAP A11): the reference's ``health``, ``autopilot``,
-``flight`` and ``_tracing`` hooks, and the executor's two autopilot
-actuators (``autopilot_pin_batch_width``, ``autopilot_tighten_regrowth``).
-The phases are ``torch.profiler.record_function`` ranges and telemetry
-spans, the counters telemetry counts, and the quarantine count a
-``device_stats`` tap.
+**Observability and control.** The phases are ``torch.profiler``
+ranges, telemetry spans and flight spans; each trial's ask and tell are
+flight events; the quarantine count is a ``device_stats`` tap; a terminal
+batch failure flushes a flight postmortem. At every batch boundary the
+card's memory gauges are sampled, the health reporter publishes and the
+autopilot steps with this executor as the target of its two actuators:
+``autopilot_pin_batch_width`` (``executor.pin_shapes``) and
+``autopilot_tighten_regrowth`` (``executor.tighten_regrowth``).
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ from typing import TYPE_CHECKING, Callable, Sequence
 import numpy as np
 import torch
 
-from optuna_tpu_torch import device_stats, telemetry
+from optuna_tpu_torch import _tracing, autopilot, device_stats, flight, health, telemetry
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.exceptions import OptunaTPUError, UpdateFinishedTrialError
 from optuna_tpu_torch.logging import get_logger, warn_once
@@ -103,6 +105,7 @@ from optuna_tpu_torch.trial._state import TrialState
 from optuna_tpu_torch.trial._trial import Trial
 
 if TYPE_CHECKING:
+    from optuna_tpu_torch.autopilot import AutopilotPolicy
     from optuna_tpu_torch.parallel.vectorized import VectorizedObjective
     from optuna_tpu_torch.study.study import Study
     from optuna_tpu_torch.trial._frozen import FrozenTrial
@@ -238,6 +241,7 @@ class ResilientBatchExecutor:
         bisect_on_error: bool = True,
         retry_policy: RetryPolicy | None = None,
         dispatch_deadline_s: float | None = None,
+        autopilot: "str | AutopilotPolicy | None" = None,
         clock: Callable[[], float] = time.monotonic,
         device: "str | torch.device | None" = None,
     ) -> None:
@@ -284,8 +288,10 @@ class ResilientBatchExecutor:
         self._requested_batch_size = self._batch_size
         self._grow_streak = 0
         # Clean full-width batches needed for one doubling back toward the
-        # requested size after an OOM clamp.
+        # requested size after an OOM clamp; the autopilot's
+        # tighten_regrowth action stretches it under a quarantine storm.
         self._grow_streak_required = 2
+        self._autopilot_request = autopilot
         self._oom_seen = False
         self._oom_attempts = 0
         self._timeout_strikes = 0
@@ -312,12 +318,19 @@ class ResilientBatchExecutor:
             )
         study._stop_flag = False
         study._thread_local.in_optimize_loop = True  # callbacks may stop()
+        # Attach the reporter and the autopilot before the first batch
+        # records anything (their delta baselines); no-ops unless opted in.
+        health.attach(study)
+        autopilot.attach(study, config=self._autopilot_request)
         try:
             done = 0
-            while done < n_trials and not study._stop_flag:
-                done += self._run_one_batch(n_trials - done)
+            with _tracing.maybe_trace_from_env():
+                while done < n_trials and not study._stop_flag:
+                    done += self._run_one_batch(n_trials - done)
         finally:
             study._thread_local.in_optimize_loop = False
+            # The final health snapshot lands even mid-interval.
+            health.flush(study)
 
     def _run_one_batch(self, remaining: int) -> int:
         """One ask -> heartbeat(suggest + dispatch + tell) cycle; returns the
@@ -336,7 +349,7 @@ class ResilientBatchExecutor:
         # The ask phase spans two blocks (the batch creation here and the
         # suggestions inside the heartbeat), stitched into one observation.
         ask_t0 = self._clock()
-        with torch.profiler.record_function(_TRACE_ASK):
+        with torch.profiler.record_function(_TRACE_ASK), flight.span("ask"):
             trials, proposals = self._ask_batch(b)
         ask_seconds = self._clock() - ask_t0
         try:
@@ -349,6 +362,13 @@ class ResilientBatchExecutor:
             else:
                 self._suggest_and_run(trials, proposals, ask_seconds)
         except Exception as err:  # last-line containment sweep: whatever escaped between ask and tell must not leave trials RUNNING; the error re-raises below, and BaseException (worker death) goes through for heartbeat failover
+            # The error is about to surface: flush the flight recorder's tail
+            # first (one dump a run), so the sequence that led here outlives
+            # the process.
+            flight.postmortem(
+                f"batch aborted: {type(err).__name__}: {err}"[:500],
+                key=f"executor:{self._run_token}",
+            )
             # _fail_trials skips trials already terminal, so the sweep is
             # idempotent over what the inner containment committed.
             try:
@@ -361,11 +381,17 @@ class ResilientBatchExecutor:
                 )
             raise
         self._maybe_grow(len(trials), size_before)
+        # Batch boundary: the card's memory high-water mark, the health
+        # publish and the autopilot step (this executor is the target of the
+        # batch-width actuators); module-global checks while all are off.
+        flight.sample_device_gauges()
+        health.maybe_report(study)
+        autopilot.maybe_step(study, executor=self)
         return len(trials)
 
     def _suggest_and_run(self, trials: list[Trial], proposals: list | None, ask_seconds: float) -> None:
         ask_t0 = self._clock()
-        with torch.profiler.record_function(_TRACE_ASK):
+        with torch.profiler.record_function(_TRACE_ASK), flight.span("ask"):
             self._prepare_batch(trials, proposals)
         telemetry.observe_phase("ask", ask_seconds + (self._clock() - ask_t0))
         self._run_batch(trials)
@@ -394,6 +420,39 @@ class ResilientBatchExecutor:
                 f"{self._grow_streak_required} clean batches at the clamped "
                 f"width; growing batch_size back to {self._batch_size}."
             )
+
+    # ------------------------------------------------- autopilot actuators
+
+    def autopilot_pin_batch_width(self) -> Callable[[], None]:
+        """Freeze the dispatch width at the current batch size: regrowth
+        probes stop, so every later batch dispatches at a width already
+        seen — the autopilot's ``executor.pin_shapes`` remediation for
+        retrace churn. OOM halving still shrinks below the pin. Returns the
+        undo that restores the requested width."""
+        previous = self._requested_batch_size
+        self._requested_batch_size = self._batch_size
+        self._grow_streak = 0
+
+        def undo() -> None:
+            self._requested_batch_size = previous
+
+        return undo
+
+    def autopilot_tighten_regrowth(self, streak: int = 8) -> Callable[[], None]:
+        """Stretch the probationary regrowth schedule: ``streak`` clean
+        full-width batches (instead of 2) buy each doubling back toward the
+        requested size — the autopilot's ``executor.tighten_regrowth``
+        remediation while quarantines eat the budget. Returns the undo."""
+        if streak < 1:
+            raise ValueError(f"streak must be >= 1; got {streak}.")
+        previous = self._grow_streak_required
+        self._grow_streak_required = int(streak)
+        self._grow_streak = 0
+
+        def undo() -> None:
+            self._grow_streak_required = previous
+
+        return undo
 
     def _ask_batch(self, b: int) -> tuple[list[Trial], list | None]:
         """Create the batch's trials (one storage batch). A sampler raising
@@ -488,6 +547,7 @@ class ResilientBatchExecutor:
                     EXECUTOR_ATTR_PREFIX + "dispatch",
                     {"batch": batch_tag, "slot": i},
                 )
+            flight.trial_event("ask", trial.number)
 
     def _needs_relative(self, trial: Trial) -> bool:
         """Would the lazy suggest path call ``sample_relative`` for this
@@ -533,7 +593,7 @@ class ResilientBatchExecutor:
         except Exception as err:  # containment boundary: every dispatch error becomes FAIL tells (plus bisection or halving); BaseException (worker death, Ctrl-C) goes through for heartbeat failover
             self._contain(trials, err)
             return
-        with torch.profiler.record_function(_TRACE_TELL), telemetry.span("tell"):
+        with torch.profiler.record_function(_TRACE_TELL), telemetry.span("tell"), flight.span("tell"):
             self._tell_batch(trials, values, finite)
 
     def _eval(self, trials: list[Trial]) -> tuple[np.ndarray, np.ndarray]:
@@ -582,7 +642,8 @@ class ResilientBatchExecutor:
         return host[:, :-1].reshape(tuple(values.shape)), host[:, -1] != 0
 
     def _dispatch(self, args: dict[str, torch.Tensor]) -> tuple[np.ndarray, np.ndarray]:
-        with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"):
+        with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"), \
+                flight.span("dispatch"):
             if self._deadline_s is None:
                 return self._realize(args)
             return run_with_deadline(lambda: self._realize(args), self._deadline_s, self._clock)
@@ -772,5 +833,7 @@ class ResilientBatchExecutor:
     def _notify(self, frozen: "FrozenTrial") -> None:
         """Fire the run's callbacks for one finished trial; every terminal
         path goes through here, as in the serial loop."""
+        if flight.enabled():
+            flight.trial_event("tell", frozen.number, frozen.state.name)
         for callback in self._callbacks:
             callback(self._study, frozen)

@@ -93,9 +93,17 @@ that carry and re-runs the interrupted chunk, which repeats its draws
 because they depend only on ``(key_seed, chunk_idx)``; the op tokens skip
 what the dead run told and adopt its token-stamped RUNNING strays.
 
-Not ported yet: the health and autopilot hooks (ROADMAP A11).
-``study._scan_gp_control`` holds the live large-n thresholds and is re-read
-at every chunk.
+**Observability and control.** The chunk and its sync are telemetry,
+flight and profiler spans; each synced trial's ask and tell are flight
+events. The health reporter and the autopilot attach at the loop's entry
+and publish/step at every sync, after its one read-back, so they add no
+host read inside a chunk. ``study._scan_gp_control`` holds the live
+large-n thresholds and is re-read at every chunk: the autopilot's
+``gp.densify`` answers a ``gp.sparse_degraded`` finding by doubling its
+``n_inducing``, and the next chunk re-seeds its inducing set at the new
+power-of-two capacity. Because chunk k+1 is dispatched before chunk k
+syncs, a decision taken at chunk k's sync first shapes chunk k+2.
+``OPTUNA_TPU_TORCH_TRACE=<logdir>`` profiles the whole run.
 """
 
 from __future__ import annotations
@@ -105,8 +113,8 @@ from typing import TYPE_CHECKING, Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from optuna_tpu_torch import _tracing, autopilot, device_stats, flight, health, telemetry
 from optuna_tpu_torch import checkpoint as _ckpt
-from optuna_tpu_torch import device_stats, telemetry
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.distributions import (
     BaseDistribution,
@@ -554,8 +562,8 @@ def _chunk_draws(
 
 def _publish_chunk(stats) -> None:
     """Chunk-boundary observability publish: one harvest per chunk, nothing
-    while telemetry is off."""
-    if not telemetry.enabled():
+    while telemetry and the flight recorder are off."""
+    if not device_stats.enabled():
         return
     device_stats.harvest(stats)
 
@@ -652,26 +660,32 @@ def optimize_scan(
     study._scan_gp_control = control
     study._stop_flag = False
     study._thread_local.in_optimize_loop = True
+    # Attach the reporter and the autopilot at the loop's entry (no-ops
+    # unless opted in): the scan loop's actuator is ``_scan_gp_control``.
+    health.attach(study)
+    autopilot.attach(study)
     try:
-        _run_scan(
-            study,
-            objective,
-            n_trials,
-            sync_every=sync_every,
-            n_startup_trials=n_startup_trials,
-            seed=seed,
-            minimum_noise=1e-7 if deterministic_objective else 1e-5,
-            callbacks=list(callbacks or ()),
-            n_preliminary_samples=n_preliminary_samples,
-            n_local_search=n_local_search,
-            lbfgs_iters=lbfgs_iters,
-            maximize=study.direction == StudyDirection.MAXIMIZE,
-            control=control,
-            device=device,
-            resume=resume,
-        )
+        with _tracing.maybe_trace_from_env():
+            _run_scan(
+                study,
+                objective,
+                n_trials,
+                sync_every=sync_every,
+                n_startup_trials=n_startup_trials,
+                seed=seed,
+                minimum_noise=1e-7 if deterministic_objective else 1e-5,
+                callbacks=list(callbacks or ()),
+                n_preliminary_samples=n_preliminary_samples,
+                n_local_search=n_local_search,
+                lbfgs_iters=lbfgs_iters,
+                maximize=study.direction == StudyDirection.MAXIMIZE,
+                control=control,
+                device=device,
+                resume=resume,
+            )
     finally:
         study._thread_local.in_optimize_loop = False
+        health.flush(study)
 
 
 def _grown(buf: torch.Tensor, size: int) -> torch.Tensor:
@@ -713,7 +727,7 @@ def _run_scan(
     resume_state = None
     ledger: _ResumeLedger | None = None
     if resume:
-        with telemetry.span("ckpt.restore"):
+        with telemetry.span("ckpt.restore"), flight.span("ckpt.restore"):
             resume_state, ledger, run_id, told = _restore_scan(
                 study, space_dict, sync_every=sync_every
             )
@@ -742,7 +756,8 @@ def _run_scan(
         if n_startup:
             x0 = space.sample_normalized(n_startup, seed=int(rng.randint(0, 2**31 - 1))).astype(np.float32)
             startup = _startup_program(objective, space)
-            with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"):
+            with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"), \
+                    flight.span("dispatch"):
                 vals0, fins0 = startup(torch.as_tensor(x0, device=device))
                 vals0 = vals0.cpu().numpy()
                 fins0 = fins0.cpu().numpy()
@@ -874,7 +889,8 @@ def _run_scan(
         chunk_idx += 1
         # Run chunk k+1, THEN sync chunk k: a stop() from chunk k's callbacks
         # discards chunk k+1 before any of its trials exist.
-        with torch.profiler.record_function(_TRACE_CHUNK), telemetry.span("scan.chunk"):
+        with torch.profiler.record_function(_TRACE_CHUNK), telemetry.span("scan.chunk"), \
+                flight.span("scan.chunk"):
             if sparse:
                 out = _chunk_program_sparse(objective, space, dev, **program_kwargs)(
                     starts, Xb, yb, mb, n_dev, Zb, zyb, zmb, shifts, gumbels
@@ -919,7 +935,7 @@ def _sync_chunk(study, space, space_dict, pending, callbacks, ledger=None) -> No
     """Read one finished chunk back to the host, publish its device stats
     and commit its trials."""
     out, n_tell, ops, _n_new = pending
-    with torch.profiler.record_function(_TRACE_SYNC), telemetry.span("scan.sync"):
+    with torch.profiler.record_function(_TRACE_SYNC), telemetry.span("scan.sync"), flight.span("scan.sync"):
         xs_np = out.xs[:n_tell].cpu().numpy()
         vals_np = out.vals[:n_tell].cpu().numpy()
         _publish_chunk(out.stats)
@@ -978,6 +994,8 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, l
             trial.relative_params = params
             for name, dist in space_dict.items():
                 trial._suggest(name, dist)
+            if flight.enabled():
+                flight.trial_event("ask", trial.number)
             if bool(fins[i]):
                 frozen = study.tell(trial, float(vals[i]))
             else:
@@ -999,6 +1017,8 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, l
                     f"Trial {trial.number} failed: non-finite objective value "
                     f"{vals[i]!r} quarantined by the scan loop."
                 )
+            if flight.enabled():
+                flight.trial_event("tell", frozen.number, frozen.state.name)
             for callback in callbacks:
                 callback(study, frozen)
         else:
@@ -1011,6 +1031,11 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, l
     except Exception:  # a storage error mid-sync must not strand the chunk's trials RUNNING
         _fail_remaining(study, trials[j:], "scan chunk sync aborted before this trial was told")
         raise
+    finally:
+        # Chunk-boundary health publish and autopilot step, after the
+        # chunk's one read-back (module-global checks while off).
+        health.maybe_report(study)
+        autopilot.maybe_step(study)
 
 
 class _ResumeLedger:

@@ -53,7 +53,10 @@ class VectorizedObjective:
     lifetime follows the objective. Nothing is compiled: a wrapper is a
     Python closure, memoized so that every optimize call over this
     objective dispatches through the same one, as the reference's jit
-    wrappers are.
+    wrappers are, and each is wrapped by
+    :func:`~optuna_tpu_torch.flight.instrument_jit` (``vectorized.compiled``
+    / ``vectorized.guarded``): a new batch width is counted as a compile, a
+    later one as a retrace.
     """
 
     def __init__(
@@ -68,7 +71,10 @@ class VectorizedObjective:
     def _memoized(self, key: tuple, build: Callable[[], Callable]) -> Callable:
         wrapper = self._compiled_cache.get(key)
         if wrapper is None:
-            wrapper = self._compiled_cache[key] = build()
+            from optuna_tpu_torch import flight
+
+            label = "vectorized.guarded" if "guarded" in key else "vectorized.compiled"
+            wrapper = self._compiled_cache[key] = flight.instrument_jit(build(), label)
         return wrapper
 
     def compiled(self, mesh: Any = None, batch_axis: str = "trials") -> Callable:
@@ -116,6 +122,7 @@ def optimize_vectorized(
     bisect_on_error: bool = True,
     retry_policy: "RetryPolicy | None" = None,
     dispatch_deadline_s: float | None = None,
+    autopilot: "str | Any | None" = None,
     device: "str | torch.device | None" = None,
 ) -> None:
     """Run ``n_trials`` in batches of ``batch_size`` (default 8), one
@@ -133,7 +140,11 @@ def optimize_vectorized(
     ``'raise'`` surfaces it; ``None`` inherits a ``GuardedSampler`` study's
     own policy), ``bisect_on_error`` isolates poison trials by bisecting
     the batch, ``retry_policy`` paces OOM halving, and
-    ``dispatch_deadline_s`` bounds a hung dispatch.
+    ``dispatch_deadline_s`` bounds a hung dispatch, and ``autopilot``
+    (``"observe"``, ``"act"`` or an
+    :class:`~optuna_tpu_torch.autopilot.AutopilotPolicy`) arms the
+    doctor-driven control loop for this run, with the executor's batch-width
+    knobs and a ``GuardedSampler``'s pins as its actuators.
     """
     from optuna_tpu_torch.parallel.executor import ResilientBatchExecutor
 
@@ -149,5 +160,6 @@ def optimize_vectorized(
         bisect_on_error=bisect_on_error,
         retry_policy=retry_policy,
         dispatch_deadline_s=dispatch_deadline_s,
+        autopilot=autopilot,
         device=device,
     ).run(n_trials)

@@ -34,6 +34,7 @@ from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from optuna_tpu_torch import _tracing, device_stats, flight, telemetry
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.distributions import BaseDistribution
 from optuna_tpu_torch.samplers._base import BaseSampler, _process_constraints_after_trial
@@ -51,6 +52,12 @@ _N_INCUMBENTS = 4
 _N_FANTASIES = 128
 _MAX_RUNNING = 8  # fantasized running trials, the most recent first kept
 _STABILIZING_NOISE = 1e-10
+
+# The ask-phase split (telemetry.PHASES): search-space build, surrogate fit
+# (or the fused programs' host packing) and proposal.
+_TRACE_SPACE = telemetry.trace_name("ask.search_space")
+_TRACE_FIT = telemetry.trace_name("ask.fit")
+_TRACE_PROPOSE = telemetry.trace_name("ask.propose")
 
 
 class GPSampler(BaseSampler):
@@ -171,12 +178,13 @@ class GPSampler(BaseSampler):
     def infer_relative_search_space(
         self, study: "Study", trial: FrozenTrial
     ) -> dict[str, BaseDistribution]:
-        search_space = {}
-        for name, distribution in self._intersection_search_space.calculate(study).items():
-            if distribution.single():
-                continue
-            search_space[name] = distribution
-        return search_space
+        with _tracing.annotate(_TRACE_SPACE), telemetry.span("ask.search_space"), flight.span("ask.search_space"):
+            search_space = {}
+            for name, distribution in self._intersection_search_space.calculate(study).items():
+                if distribution.single():
+                    continue
+                search_space[name] = distribution
+            return search_space
 
     # --------------------------------------------------------------- sampling
 
@@ -238,18 +246,26 @@ class GPSampler(BaseSampler):
             score = raw_vals if study.direction == StudyDirection.MAXIMIZE else -raw_vals
             y, _, _ = _standardize(score)
             Xc, yc, counts = collapse_duplicate_rows(X, y)
-            state, raw_params, _stats = fit_gp(
-                Xc,
-                yc.astype(np.float32),
-                is_cat,
-                warm_start_raw=warm[0] if warm else None,
-                seed=seed,
-                minimum_noise=1e-7 if self._deterministic else 1e-5,
-                counts=counts,
-                n_exact_max=self._n_exact_max,
-                n_inducing=self._n_inducing,
-                device=self._device,
-            )
+            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+                state, raw_params, fit_stats = fit_gp(
+                    Xc,
+                    yc.astype(np.float32),
+                    is_cat,
+                    warm_start_raw=warm[0] if warm else None,
+                    seed=seed,
+                    minimum_noise=1e-7 if self._deterministic else 1e-5,
+                    counts=counts,
+                    n_exact_max=self._n_exact_max,
+                    n_inducing=self._n_inducing,
+                    device=self._device,
+                )
+            if device_stats.enabled():
+                # The sparse fit reports its inducing stats; the exact fit
+                # reports none.
+                inducing = {k: fit_stats[k] for k in ("gp.inducing_count", "gp.sparsity_ratio") if k in fit_stats}
+                if inducing:
+                    device_stats.harvest(inducing, trial=trial.number)
+            ladder_rungs = [fit_stats["gp.ladder_rung"]]
             self._kernel_params_cache[sig] = [raw_params]
             best = float(np.max(yc))
             if running is not None:
@@ -263,22 +279,32 @@ class GPSampler(BaseSampler):
                     stabilizing_noise=self._scalar(_STABILIZING_NOISE),
                 )
         else:
-            acqf_name, data, raws = self._build_logehvi(study, trials, X, is_cat, cat_mask, warm, seed)
+            acqf_name, data, raws, ladder_rungs = self._build_logehvi(
+                study, trials, X, is_cat, cat_mask, warm, seed
+            )
             self._kernel_params_cache[sig] = raws
 
         if self._constraints_func is not None:
-            acqf_name, data = self._wrap_constraints(acqf_name, data, trials, X, is_cat, cat_mask, seed)
+            acqf_name, data, cons_rungs = self._wrap_constraints(
+                acqf_name, data, trials, X, is_cat, cat_mask, seed
+            )
+            ladder_rungs = ladder_rungs + cons_rungs
 
         extra = X[-min(len(X), _N_INCUMBENTS):]  # warm-start local search at recent incumbents
-        x_best, _ = optimize_acqf_mixed(
-            acqf_name,
-            data,
-            space,
-            rng,
-            extra_candidates=extra,
-            n_preliminary=self._n_preliminary_samples,
-            n_local_search=self._n_local_search,
-        )
+        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+            x_best, _ = optimize_acqf_mixed(
+                acqf_name,
+                data,
+                space,
+                rng,
+                extra_candidates=extra,
+                n_preliminary=self._n_preliminary_samples,
+                n_local_search=self._n_local_search,
+            )
+        # Host boundary: x_best is on the host, so the fits are long done and
+        # reading their rungs waits for nothing.
+        if device_stats.enabled():
+            device_stats.harvest({"gp.ladder_rung": max(int(r) for r in ladder_rungs)}, trial=trial.number)
         return space.unnormalize_one(x_best)
 
     def _scalar(self, value: float) -> torch.Tensor:
@@ -382,29 +408,37 @@ class GPSampler(BaseSampler):
         """Single-objective unconstrained suggestion: exact or sparse engine."""
         from optuna_tpu_torch.gp.optim_mixed import snap_steps
 
-        dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
-            study, space, X, trials, warm, sig, seed, q=1
-        )
+        # The wall-clock split: "ask.fit" is the host packing of the fit's
+        # inputs, "ask.propose" the one device program that fits and
+        # proposes; its stats struct says what it spent its work on.
+        with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+            dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
+                study, space, X, trials, warm, sig, seed, q=1
+            )
         minimum_noise = 1e-7 if self._deterministic else 1e-5
         n_exact_max, _ = self._sparse_limits()
-        if n > n_exact_max:
-            args = (
-                starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
-                shifts, gumbels, minimum_noise, *common,
-            )
-            xs, _vs, raw, _stats = self._sparse_call(args, n, q=1, fit_iters=fit_iters, dev=dev)
-            x_best = xs[0]
-        else:
-            from optuna_tpu_torch.gp.fused import gp_suggest_fused
+        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+            if n > n_exact_max:
+                args = (
+                    starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
+                    shifts, gumbels, minimum_noise, *common,
+                )
+                xs, _vs, raw, dev_stats = self._sparse_call(args, n, q=1, fit_iters=fit_iters, dev=dev)
+                x_best = xs[0]
+            else:
+                from optuna_tpu_torch.gp.fused import gp_suggest_fused
 
-            x_best, _, raw, _stats = gp_suggest_fused(
-                starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
-                shifts[0], gumbels[0], minimum_noise, *common,
-                n_local_search=self._n_local_search,
-                fit_iters=fit_iters,
-                has_sweep=dev.has_sweep,
-            )
-        self._kernel_params_cache[sig] = [raw.detach().cpu().numpy()]
+                x_best, _, raw, dev_stats = gp_suggest_fused(
+                    starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
+                    shifts[0], gumbels[0], minimum_noise, *common,
+                    n_local_search=self._n_local_search,
+                    fit_iters=fit_iters,
+                    has_sweep=dev.has_sweep,
+                )
+            self._kernel_params_cache[sig] = [raw.detach().cpu().numpy()]
+        # Host boundary: raw was just read, so the program is done and the
+        # stats' reads wait for nothing.
+        device_stats.harvest(dev_stats)
         # Snap stepped dims (the fused program treats them as continuous).
         x_np = snap_steps(space, x_best.detach().cpu().numpy().astype(np.float64))
         return space.unnormalize_one(x_np)
@@ -451,29 +485,32 @@ class GPSampler(BaseSampler):
         from optuna_tpu_torch.gp.fused import gp_suggest_chain_fused
         from optuna_tpu_torch.gp.optim_mixed import snap_steps
 
-        dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
-            study, space, X, trials, warm, sig, seed, q=q, pad_extra=q
-        )
+        with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+            dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
+                study, space, X, trials, warm, sig, seed, q=q, pad_extra=q
+            )
         minimum_noise = 1e-7 if self._deterministic else 1e-5
         n_exact_max, _ = self._sparse_limits()
-        if n > n_exact_max:
-            # The sparse program's chain tells each fantasy by an O(m^2)
-            # additive factor raise instead of an O(n^2) row append.
-            args = (
-                starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
-                shifts, gumbels, minimum_noise, *common,
-            )
-            xs, _vs, raw, _stats = self._sparse_call(args, n, q=q, fit_iters=fit_iters, dev=dev)
-        else:
-            xs, _vs, raw, _stats = gp_suggest_chain_fused(
-                starts, Xp, yp, dev.cat_mask, maskp, n, dev.sobol_base, inc,
-                shifts, gumbels, minimum_noise, *common,
-                q=q,
-                n_local_search=min(self._n_local_search, 6),
-                fit_iters=fit_iters,
-                has_sweep=dev.has_sweep,
-            )
-        self._kernel_params_cache[sig] = [raw.detach().cpu().numpy()]
+        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+            if n > n_exact_max:
+                # The sparse program's chain tells each fantasy by an O(m^2)
+                # additive factor raise instead of an O(n^2) row append.
+                args = (
+                    starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
+                    shifts, gumbels, minimum_noise, *common,
+                )
+                xs, _vs, raw, dev_stats = self._sparse_call(args, n, q=q, fit_iters=fit_iters, dev=dev)
+            else:
+                xs, _vs, raw, dev_stats = gp_suggest_chain_fused(
+                    starts, Xp, yp, dev.cat_mask, maskp, n, dev.sobol_base, inc,
+                    shifts, gumbels, minimum_noise, *common,
+                    q=q,
+                    n_local_search=min(self._n_local_search, 6),
+                    fit_iters=fit_iters,
+                    has_sweep=dev.has_sweep,
+                )
+            self._kernel_params_cache[sig] = [raw.detach().cpu().numpy()]
+        device_stats.harvest(dev_stats)
         xs_np = xs.detach().cpu().numpy().astype(np.float64)
         return [space.unnormalize_one(snap_steps(space, xs_np[i])) for i in range(len(xs_np))]
 
@@ -570,21 +607,23 @@ class GPSampler(BaseSampler):
             np.asarray([t.values for t in trials], dtype=np.float64), study.directions
         )
         M = loss_vals.shape[1]
-        states, raws = [], []
+        states, raws, rungs = [], [], []
         std_vals = np.empty_like(loss_vals, dtype=np.float32)
         for k in range(M):
             yk, _, _ = _standardize(loss_vals[:, k])
             std_vals[:, k] = yk
-            st, raw, _stats = fit_gp(
-                X,
-                yk.astype(np.float32),
-                is_cat,
-                warm_start_raw=warm[k] if warm and len(warm) > k else None,
-                seed=seed + k,
-                device=self._device,
-            )
+            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+                st, raw, fit_stats = fit_gp(
+                    X,
+                    yk.astype(np.float32),
+                    is_cat,
+                    warm_start_raw=warm[k] if warm and len(warm) > k else None,
+                    seed=seed + k,
+                    device=self._device,
+                )
             states.append(st)
             raws.append(raw)
+            rungs.append(fit_stats["gp.ladder_rung"])
 
         worst = np.max(std_vals, axis=0)
         ref_point = np.maximum(worst * 1.1, worst * 0.9) + 1e-6
@@ -599,7 +638,7 @@ class GPSampler(BaseSampler):
             qmc_z=upload(qmc_z, self._device),
             stabilizing_noise=self._scalar(_STABILIZING_NOISE),
         )
-        return "logehvi", data, raws
+        return "logehvi", data, raws, rungs
 
     def _wrap_constraints(self, acqf_name, data, trials, X, is_cat, cat_mask, seed):
         """One GP per constraint (``seed + 101 + k``) on its standardized
@@ -611,21 +650,25 @@ class GPSampler(BaseSampler):
 
         constraint_rows = [_constraints_list(t.system_attrs) for t in trials]
         if any(c is None for c in constraint_rows):
-            return acqf_name, data
+            return acqf_name, data, []
         cons = np.asarray(constraint_rows, dtype=np.float64)  # (n, C)
-        states, thresholds = [], []
+        states, thresholds, rungs = [], [], []
         for k in range(cons.shape[1]):
             yk, mu, sd = _standardize(cons[:, k])
-            st, _, _stats = fit_gp(X, yk.astype(np.float32), is_cat, seed=seed + 101 + k, device=self._device)
+            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+                st, _, fit_stats = fit_gp(
+                    X, yk.astype(np.float32), is_cat, seed=seed + 101 + k, device=self._device
+                )
             states.append(st)
             thresholds.append((0.0 - mu) / sd)
+            rungs.append(fit_stats["gp.ladder_rung"])
         return f"constrained_{acqf_name}", ConstrainedData(
             base=data,
             constraint_states=stack_states(states),
             constraint_cat_mask=cat_mask,
             constraint_thresholds=upload(thresholds, self._device),
             stabilizing_noise=self._scalar(_STABILIZING_NOISE),
-        )
+        ), rungs
 
     # ----------------------------------------------------------------- helpers
 

@@ -32,7 +32,7 @@ from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from optuna_tpu_torch import telemetry
+from optuna_tpu_torch import flight, telemetry
 from optuna_tpu_torch.distributions import BaseDistribution, CategoricalDistribution
 from optuna_tpu_torch.logging import get_logger, warn_once
 from optuna_tpu_torch.samplers._base import BaseSampler
@@ -333,9 +333,9 @@ class GuardedSampler(BaseSampler):
         self._clock = clock
         self._warn_token = next(_guard_instance_seq)
         self._fallback_random: BaseSampler | None = None
-        # Autopilot actuator (the autopilot itself waits for ROADMAP A11;
-        # pins also work by hand): while any pin
-        # holds suggestions, the next relative suggestions skip the wrapped
+        # Autopilot actuator (``sampler.restart`` and
+        # ``sampler.pin_independent`` drive it; pins also work by hand):
+        # while any pin holds suggestions, the next relative suggestions skip the wrapped
         # sampler entirely and resolve every dimension through the
         # independent path — the pre-emptive form of the per-trial fallback
         # this wrapper already contains reactively (one decision instead of
@@ -491,6 +491,13 @@ class GuardedSampler(BaseSampler):
                 f"recording sampler fallback attr {key!r} raised {attr_err!r}; "
                 "continuing with the fallback anyway."
             )
+        # The first degrade per (wrapper, study) flushes the flight recorder's
+        # tail (a no-op while flight is off): the events that led to a broken
+        # fit are what a later "why did the sampler degrade" asks for.
+        flight.postmortem(
+            f"sampler degraded during {phase}: {reason}"[:500],
+            key=f"guarded_sampler:{self._warn_token}:{study._study_id}",
+        )
         if self._fallback == "raise":
             raise err
         warn_once(
@@ -502,6 +509,14 @@ class GuardedSampler(BaseSampler):
             f"'{SAMPLER_FALLBACK_ATTR_PREFIX}*' system attrs (and the "
             "sampler.fallback telemetry counter) without a log line.",
         )
+
+    def autopilot_densify(self):
+        """Delegate the ``gp.densify`` actuator to the wrapped sampler; the
+        containment keeps working unchanged after the inner engine widens."""
+        inner = getattr(self._sampler, "autopilot_densify", None)
+        if inner is None:
+            raise AttributeError(f"{type(self._sampler).__name__} has no sparse-GP engine to densify")
+        return inner()
 
     # ----------------------------------------------------------------- hooks
 

@@ -4,9 +4,11 @@
 One shared :class:`_RunBudget` hands out per-trial claims to however many
 workers exist (the sequential path is one worker; ``n_jobs`` threads share
 one budget), and each trial runs the ask → objective (under a heartbeat)
-→ tell pipeline as an :class:`_Outcome` value. The reference's telemetry
-spans and its health, autopilot, flight-recorder and tracing hooks are not
-ported (ROADMAP A11).
+→ tell pipeline as an :class:`_Outcome` value. Each phase is a telemetry
+span, a flight span and a profiler range (:func:`_tracing.annotate`); the
+trial's ask and tell are flight events; the health reporter and the
+autopilot attach at the run's entry, publish and step at every trial
+boundary, and the reporter flushes its final snapshot at the run's end.
 
 With ``n_jobs > 1`` the worker threads launch the port's kernels and torch
 ops on one card, on the default stream: correct, and serial on the card.
@@ -25,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
-from optuna_tpu_torch import exceptions, logging as logging_module
+from optuna_tpu_torch import _tracing, autopilot, exceptions, flight, health, logging as logging_module, telemetry
 from optuna_tpu_torch.progress_bar import _ProgressBar
 from optuna_tpu_torch.study._tell import _tell_with_warning
 from optuna_tpu_torch.trial._frozen import FrozenTrial
@@ -36,6 +38,15 @@ if TYPE_CHECKING:
     from optuna_tpu_torch.study.study import ObjectiveFuncType, Study
 
 _logger = logging_module.get_logger(__name__)
+
+# The profiler range names, derived from the telemetry phase names once, so
+# the per-trial hot path never builds a phase string.
+_TRACE_ASK = telemetry.trace_name("ask")
+_TRACE_DISPATCH = telemetry.trace_name("dispatch")
+_TRACE_TELL = telemetry.trace_name("tell")
+# The per-trial range: a %-format that _tracing.annotate formats only while
+# a profiler runs (a timeline grouping aid outside the phase vocabulary).
+_TRACE_TRIAL_FMT = "optuna_tpu_torch.trial.%d"
 
 
 class _RunBudget:
@@ -138,23 +149,31 @@ def _execute_one(
     if is_heartbeat_enabled(study._storage):
         fail_stale_trials(study)
 
-    trial = study.ask()
+    with _tracing.annotate(_TRACE_ASK), telemetry.span("ask"), flight.span("ask"):
+        trial = study.ask()
+    flight.trial_event("ask", trial.number)
     with get_heartbeat_thread(trial._trial_id, study._storage):
-        outcome = _call_objective(func, trial)
+        with _tracing.annotate(_TRACE_TRIAL_FMT, trial.number):
+            with _tracing.annotate(_TRACE_DISPATCH), telemetry.span("dispatch"), \
+                    flight.span("dispatch", trial.number):
+                outcome = _call_objective(func, trial)
 
     # Misbehaving objectives (wrong arity, NaNs, non-floats) downgrade to
     # warnings via _tell_with_warning rather than aborting the whole loop.
     try:
-        frozen = _tell_with_warning(
-            study=study,
-            trial=trial,
-            value_or_values=outcome.values,
-            state=outcome.state,
-            suppress_warning=True,
-        )
+        with _tracing.annotate(_TRACE_TELL), telemetry.span("tell"), flight.span("tell", trial.number):
+            frozen = _tell_with_warning(
+                study=study,
+                trial=trial,
+                value_or_values=outcome.values,
+                state=outcome.state,
+                suppress_warning=True,
+            )
     except Exception:  # announce-then-reraise: nothing is swallowed
         _announce(study, study._storage.get_trial(trial._trial_id), outcome)
         raise
+    if flight.enabled():
+        flight.trial_event("tell", frozen.number, frozen.state.name)
     _announce(study, frozen, outcome)
 
     swallowed = outcome.error is not None and isinstance(outcome.error, catch)
@@ -193,6 +212,11 @@ def _worker(
                 callback(study, frozen)
             if progress_bar is not None:
                 progress_bar.update(budget.elapsed(), study)
+            # Trial-boundary health publish (rate-limited; one module-global
+            # check while the reporter is off) and autopilot step (one dict
+            # lookup while no control loop is attached).
+            health.maybe_report(study)
+            autopilot.maybe_step(study)
         except BaseException:  # halt-then-reraise: nothing is swallowed
             budget.halt()
             raise
@@ -224,6 +248,11 @@ def _optimize(
     progress_bar = _ProgressBar(show_progress_bar, n_trials, timeout)
     study._stop_flag = False
     budget = _RunBudget(study, n_trials, timeout)
+    # Attach the health reporter and the autopilot before the first trial
+    # records anything, so their delta baselines exclude whatever an earlier
+    # run left in the process-wide registry (no-ops while off).
+    health.attach(study)
+    autopilot.attach(study)
 
     try:
         if n_jobs == 1:
@@ -255,3 +284,5 @@ def _optimize(
     finally:
         study._thread_local.in_optimize_loop = False
         progress_bar.close()
+        # The final health snapshot lands even when the run ends mid-interval.
+        health.flush(study)

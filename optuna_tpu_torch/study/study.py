@@ -5,8 +5,10 @@ This carries ``create_study``, ``load_study``, ``delete_study``,
 ``Study.optimize`` (``n_jobs`` threads, the progress bar),
 ``ask/tell/add_trial(s)``, ``ask_batch`` (the host half of
 ``parallel.optimize_vectorized``), ``Study.optimize_scan``,
-``trials_dataframe``, ``sampler_fallback=`` and the ``best_*`` accessors;
-the sharded loop waits for the sharded tier (ROADMAP A8a).
+``trials_dataframe``, ``sampler_fallback=``, ``autopilot=``, the
+observability exports (``telemetry_snapshot``, ``health_report``,
+``trace_snapshot``) and the ``best_*`` accessors; the sharded loop waits
+for the sharded tier (ROADMAP A8a).
 
 Parity target: ``optuna/study/study.py`` (``Study:67``, ``create_study:1203``,
 ``load_study:1358``, ``delete_study:1447``, ``copy_study:1510``,
@@ -59,6 +61,7 @@ class Study:
         pruner: "BasePruner | None" = None,
         *,
         sampler_fallback: str | None = None,
+        autopilot: "str | Any | None" = None,
     ) -> None:
         from optuna_tpu_torch.pruners import MedianPruner
         from optuna_tpu_torch.storages import get_storage
@@ -81,6 +84,12 @@ class Study:
             if not isinstance(self.sampler, GuardedSampler):
                 self.sampler = GuardedSampler(self.sampler, fallback=sampler_fallback)
         self.pruner = pruner or MedianPruner()
+        if autopilot is not None:
+            # The doctor-driven control loop (optuna_tpu_torch.autopilot):
+            # "observe" logs would-have-acted decisions, "act" executes them;
+            # an AutopilotPolicy carries every knob. It attaches at each
+            # optimize loop's entry.
+            self._autopilot_request = autopilot
 
         self._thread_local = _ThreadLocalStudyAttribute()
         self._stop_flag = False
@@ -88,6 +97,10 @@ class Study:
     def __getstate__(self) -> dict[str, Any]:
         state = self.__dict__.copy()
         del state["_thread_local"]
+        # The health reporter and the autopilot are per process (worker id,
+        # baselines, locks); an unpickled study attaches fresh ones.
+        state.pop("_health_reporter", None)
+        state.pop("_autopilot", None)
         return state
 
     def __setstate__(self, state: dict[str, Any]) -> None:
@@ -213,20 +226,24 @@ class Study:
     ) -> None:
         """Run the ask -> objective -> tell loop (reference ``study.py:413``):
         ``n_jobs`` threads share one trial budget (``-1``: one per CPU), and
-        ``show_progress_bar`` needs the optional ``tqdm``."""
+        ``show_progress_bar`` needs the optional ``tqdm``. Set
+        ``OPTUNA_TPU_TORCH_TRACE=<logdir>`` to write a ``torch.profiler``
+        trace of the whole run (see :mod:`optuna_tpu_torch._tracing`)."""
+        from optuna_tpu_torch import _tracing
         from optuna_tpu_torch.study._optimize import _optimize
 
-        _optimize(
-            study=self,
-            func=func,
-            n_trials=n_trials,
-            timeout=timeout,
-            n_jobs=n_jobs,
-            catch=tuple(catch) if isinstance(catch, Iterable) else (catch,),
-            callbacks=callbacks,
-            gc_after_trial=gc_after_trial,
-            show_progress_bar=show_progress_bar,
-        )
+        with _tracing.maybe_trace_from_env():
+            _optimize(
+                study=self,
+                func=func,
+                n_trials=n_trials,
+                timeout=timeout,
+                n_jobs=n_jobs,
+                catch=tuple(catch) if isinstance(catch, Iterable) else (catch,),
+                callbacks=callbacks,
+                gc_after_trial=gc_after_trial,
+                show_progress_bar=show_progress_bar,
+            )
 
     def optimize_scan(self, objective: Any, n_trials: int, **kwargs: Any) -> None:
         """Run ``n_trials`` GP-BO trials with the ask -> evaluate -> tell cycle
@@ -373,6 +390,44 @@ class Study:
         from optuna_tpu_torch.study._dataframe import _trials_dataframe
 
         return _trials_dataframe(self, attrs, multi_index)
+
+    def telemetry_snapshot(self) -> dict[str, Any]:
+        """The **process-local** telemetry snapshot (see
+        :mod:`optuna_tpu_torch.telemetry`): phase histograms, the
+        containment counters, the ``device.*`` gauges harvested from the
+        device programs' stats, and under ``"jit"`` the per-label
+        compile/retrace totals (:func:`optuna_tpu_torch.flight.jit_totals`).
+        Enable recording with ``OPTUNA_TPU_TORCH_TELEMETRY=1`` or
+        ``telemetry.enable()``; while disabled the counters, gauges and
+        histograms are empty. The study-scoped sibling is
+        :meth:`health_report`."""
+        from optuna_tpu_torch import telemetry
+
+        return telemetry.export_snapshot()
+
+    def health_report(self, **kwargs: Any) -> dict[str, Any]:
+        """The study doctor's **fleet-wide** report (see
+        :mod:`optuna_tpu_torch.health`): every worker's published snapshot
+        merged, per-worker liveness, and the findings with severities and
+        remediation hints — what ``optuna-tpu-torch doctor`` and
+        ``/health.json`` serve. Workers publish while the reporter is
+        enabled (``OPTUNA_TPU_TORCH_HEALTH=1`` or ``health.enable()``); the
+        trial-history checks run on any study."""
+        from optuna_tpu_torch import health
+
+        return health.report_for_study(self, **kwargs)
+
+    def trace_snapshot(self) -> dict[str, Any]:
+        """The flight recorder's timeline as Chrome trace-event JSON (load it
+        in Perfetto or ``chrome://tracing``): per-trial ask/dispatch/tell
+        spans, the scan loop's chunk and sync spans, containment and
+        autopilot events, compile/retrace events and device gauges. Enable
+        recording with ``OPTUNA_TPU_TORCH_FLIGHT=1`` or ``flight.enable()``.
+        Samples the card's memory gauges once before exporting."""
+        from optuna_tpu_torch import flight
+
+        flight.sample_device_gauges()
+        return flight.chrome_trace()
 
     def stop(self) -> None:
         """Request loop exit after the current trial (reference ``study.py:1033``)."""

@@ -29,9 +29,19 @@
   mid-append leaves, and :func:`plant_stale_lock` the lockfile a killed
   worker leaves.
 
-The device-stat, pod, health, hub-fleet and lease chaos of the reference,
-and the checkpoint matrix's ``warm_load`` row (a hub re-home), wait for
-ROADMAP A8a, A9 and A11.
+* Observability and control chaos (:mod:`optuna_tpu_torch.flight`,
+  :mod:`~optuna_tpu_torch.device_stats`, :mod:`~optuna_tpu_torch.health`,
+  :mod:`~optuna_tpu_torch.autopilot` and :mod:`~optuna_tpu_torch.slo` are
+  the layers under test): :data:`FLIGHT_EVENT_CHAOS_MATRIX`,
+  :data:`DEVICE_STAT_CHAOS_MATRIX`, :data:`HEALTH_CHECK_CHAOS_MATRIX`,
+  :data:`AUTOPILOT_CHAOS_MATRIX` and :data:`SLO_CHAOS_MATRIX` (each equal to
+  the reference's), the scenario plans :class:`DeviceStatChaosPlan`,
+  :class:`HealthChaosPlan`, :class:`AutopilotChaosPlan` and
+  :class:`SLOChaosPlan` with their ``*_plan()`` constructors, and
+  :func:`plant_dead_worker`, the stale snapshot a killed worker leaves.
+
+The pod, hub-fleet and lease chaos of the reference, and the checkpoint
+matrix's ``warm_load`` row (a hub re-home), wait for ROADMAP A8a and A9.
 
 Typical chaos test::
 
@@ -655,3 +665,403 @@ def plant_stale_lock(file_path: str, age_s: float = 3600.0, *, flavor: str = "sy
     else:
         raise ValueError(f"Unknown lock flavor {flavor!r} (want 'symlink' or 'open').")
     return lockfile
+
+
+# ------------------------------------------------ observability and control chaos
+
+
+## Acceptance matrix for the flight recorder's event kinds: every kind the
+# recorder accepts (``flight.py::EVENT_KINDS``) maps to the scenario that
+# proves it fires. A hand-written literal equal to the reference's (the
+# tests hold both to ``EVENT_KINDS``).
+FLIGHT_EVENT_CHAOS_MATRIX: dict[str, str] = {
+    "phase": "fault-free study; ask/dispatch/tell spans recorded per trial/batch",
+    "trial": "fault-free study; one ask + one tell instant per trial, numbered",
+    "containment": "NaN slot + crash + storage blip; events match the plan in order",
+    "rpc.client": "flight-enabled proxy client; every RPC records a client span",
+    "rpc.server": "two-process study; server handler spans carry the client trace id",
+    "jit.compile": "first vectorized dispatch grows the jit cache; compile event + gauge",
+    "jit.retrace": "a second batch shape grows the cache again; retrace event + gauge",
+    "gauge": "device-gauge sample records HBM stats where the backend exposes them",
+    "postmortem": "terminal batch failure / sampler degrade flushes a bounded dump",
+    "flow": "coalesced ask burst + ready-queue pops; the Chrome export carries matched "
+    "fan-in and fan-out arrow endpoints (ph s/f, same id), schema-validated",
+}
+
+
+# Chaos matrix for the device-stat channel: every stat name the harvest
+# accepts (``device_stats.py::DEVICE_STATS``) maps to the injection scenario
+# that proves it reports. A hand-written literal equal to the reference's.
+DEVICE_STAT_CHAOS_MATRIX: dict[str, str] = {
+    "gp.ladder_rung": "inject a rank-deficient Gram; the in-graph ladder reports rung >= 1, "
+    "the well-conditioned twin reports 0",
+    "gp.fit_iterations": "run a fused GP ask; the stats struct reports >= 1 fit iterations",
+    "gp.proposal_fallback_coords": "fault-free fused ask; the count matches the plan exactly (0 — "
+    "no coordinate walked non-finite)",
+    "gp.best_acq": "run a fused GP ask; the reported best acquisition value is finite",
+    "gp.inducing_count": "run a sparse fused ask above the exact-size threshold; the reported "
+    "count is >= 1 and <= the inducing capacity, the below-threshold twin never reports it",
+    "gp.sparsity_ratio": "run a sparse fused ask with n real rows and capacity m < n; the "
+    "reported ratio equals m/n within f32 tolerance",
+    "gp.inducing_swaps": "run a sparse scan chunk on a drifting objective; swap-ins report >= 0 "
+    "and equal the SGPR rebuilds the chunk performed",
+    "gp.sparse_heldout_err": "run a sparse scan chunk; the reported one-step-ahead residual is "
+    "finite and non-negative (an exactly-predicted chunk reports ~0)",
+    "executor.quarantined": "inject NaN at scheduled batch slots; the harvested total equals the "
+    "plan's slot count exactly, the fault-free twin reports 0",
+    "scan.rank1_updates": "run a fault-free scan study on a well-conditioned objective; updates "
+    "equal the ingested tells and refactorizations stay 0 after warm-up",
+    "scan.refactorizations": "append an exact-duplicate design row under a deterministic noise "
+    "floor; the in-graph pivot check falls back to the full ladder refactorization",
+    "scan.quarantined": "inject NaN objective slots inside a scan chunk; the harvested total "
+    "equals the plan's slot count, each slot told FAIL at sync, the fault-free twin reports 0",
+    "scan.chunk_fill": "fault-free scan chunk; the fill equals the chunk length (quarantined "
+    "chunks fill short by exactly the quarantined count)",
+    "shard.width": "fault-free sharded batch; the stat equals ceil(B / trials-shards) exactly",
+    "shard.quarantined": "inject NaN at slots owned by one shard; the harvested total equals "
+    "the plan's slot count, the fault-free twin reports 0",
+    "shard.contained_groups": "inject a one-dispatch poison crash into a multi-shard batch; "
+    "per-shard containment re-dispatches every shard group and the count equals the group count",
+}
+
+
+@dataclass(frozen=True)
+class DeviceStatChaosPlan:
+    """One deterministic device-stat chaos scenario: which batch slots to
+    NaN-poison, how to build the rank-deficient Gram the jitter ladder must
+    resolve, and the exact stats the device channel must report
+    (``the device-stat chaos tests`` asserts against these, the
+    executable form of :data:`DEVICE_STAT_CHAOS_MATRIX`).
+
+    The Gram injection targets the in-graph tap directly
+    (:func:`~optuna_tpu_torch.samplers._resilience.ladder_cholesky_with_rung`
+    under jit) rather than riding a GP fit: the resilience rings upstream —
+    duplicate-row collapse, the MAP fit's non-finite loss guard — exist
+    precisely to keep real fits away from singular factorizations, so a
+    deterministic rung >= 1 needs the raw rank-deficient matrix the jitter
+    ladder's tests use (an outer product: exactly singular, and a bare
+    f32 Cholesky hands back NaN for it without raising).
+    """
+
+    nan_slots: tuple[int, ...] = (1, 2)
+    batch_size: int = 4
+    n_trials: int = 4
+    gram_size: int = 8
+    expected_fallback_coords: int = 0
+    min_ladder_rung: int = 1
+
+    @property
+    def expected_quarantined(self) -> int:
+        return len(self.nan_slots)
+
+    def rank_deficient_gram(self) -> "np.ndarray":
+        """Exactly singular PSD matrix (rank one, no diagonal noise): the
+        Gram a bare Cholesky silently NaNs on."""
+        v = np.linspace(1.0, 2.0, self.gram_size, dtype=np.float32)
+        return np.outer(v, v)
+
+    def healthy_gram(self) -> "np.ndarray":
+        """The well-conditioned twin: the ladder's happy path, rung 0."""
+        return (
+            self.rank_deficient_gram()
+            + np.eye(self.gram_size, dtype=np.float32)
+        )
+
+
+def device_stat_chaos_plan() -> DeviceStatChaosPlan:
+    """The default :class:`DeviceStatChaosPlan` the chaos suite runs —
+    two NaN slots in a four-wide batch, an 8x8 rank-one Gram."""
+    return DeviceStatChaosPlan()
+
+
+# ------------------------------------------------------- study-doctor chaos
+
+
+# Chaos matrix for the study doctor's checks: every check id
+# (``health.py::HEALTH_CHECKS``) maps to the fault scenario that proves it
+# fires. A hand-written literal equal to the reference's: an unproven doctor
+# check certifies sick studies healthy.
+HEALTH_CHECK_CHAOS_MATRIX: dict[str, str] = {
+    "study.stagnation": "seed a constant-value history + a never-improving objective past "
+    "the window; the doctor flags stagnation, the improving twin stays clean",
+    "sampler.fallback_storm": "inject NaN proposals at storm rate via FaultySampler under "
+    "GuardedSampler; the fallback counters cross the rate threshold",
+    "sampler.duplicate_proposals": "seed pairwise-duplicated retry-clone history; the exact-"
+    "duplicate rate crosses the threshold",
+    "executor.quarantine_rate": "inject NaN batch slots; quarantine counters cross the "
+    "budget-loss rate threshold",
+    "executor.dispatch_timeouts": "publish a worker snapshot carrying dispatch_timeout "
+    "strikes at the budget; the strike count alone flags",
+    "jit.retrace_churn": "publish jit totals with retraces_after_first past the churn "
+    "floor; the labels are named in the finding",
+    "gp.ladder_escalation": "publish device.gp.ladder_rung.max at the escalation rung; "
+    "the gauge alone flags",
+    "gp.sparse_degraded": "publish device.gp.sparse_heldout_err.last at/above the "
+    "standardized-unit threshold; the gauge alone flags, the well-covered twin stays clean",
+    "worker.dead": "plant a stale worker snapshot (plant_dead_worker — what a SIGKILL'd "
+    "worker leaves); liveness derives dead from snapshot age vs interval",
+    "shard.imbalance": "publish shard.trials.<coord> throughput gauges with one shard >= 2x "
+    "below the mesh median; the lagging coordinate is named, the balanced twin stays clean",
+    "service.backpressure": "force the suggestion service's shed ladder with an overload "
+    "burst (ServiceChaosPlan); the doctor reports the exact per-policy shed counts",
+    "service.ready_queue_starved": "drive asks with ask-ahead disabled (or perpetually "
+    "invalidated); the miss rate crosses the starvation threshold, the speculating twin stays clean",
+    "service.slo_burn": "overload burst under a floor-level serve.ask target (SLOChaosPlan): "
+    "every ask violates, both burn windows cross critical, the finding carries the exact "
+    "violation counts through the fleet channel, and the compliant twin stays clean",
+    "service.hub_dead": "SIGKILL one FakeHubFleet hub mid-burst (HubChaosPlan): its -serve "
+    "snapshot goes stale past grace, the doctor names the dead hub, and the healthy-fleet "
+    "twin stays clean",
+    "checkpoint.stale": "garble every ckpt: ring slot before a resume (CheckpointChaosPlan's "
+    "corrupt-blob leg): each blob is CRC-rejected and counted, the resume falls back to the "
+    "recompute-from-history path, and the doctor reports the rejection totals; the "
+    "clean-resume twin stays unflagged",
+    "service.hub_flapping": "bounce a study's lease between two hubs (repeated kill/heal, "
+    "LeaseChaosPlan's flap leg): three takeovers land in the lease history inside the "
+    "window, the doctor names both hubs, and the single-takeover twin stays clean",
+    "service.hub_zombie_fenced": "push tells through a partitioned owner (the zombie); "
+    "its stale-epoch writes are fenced and fleet.fenced_write lands in the -serve "
+    "snapshot, so the doctor reports the zombie before operators chase ghost writes",
+    "service.partition_suspected": "take over a study's lease while the deposed hub's "
+    "-serve snapshot is still fresh (alive behind the partition): the doctor flags "
+    "partition-not-crash; the crashed-hub twin (stale snapshot) reports hub_dead instead",
+}
+
+
+@dataclass(frozen=True)
+class HealthChaosPlan:
+    """One deterministic study-doctor chaos scenario: the combined faults to
+    inject (NaN batch slots, pathological seeded history, storage blips, a
+    dead worker's stale snapshot) and the exact finding ids the doctor must
+    report for them — the doctor's chaos tests assert the report's
+    check-id set equals :attr:`expected_findings` exactly, and the
+    fault-free twin reports healthy (the executable form of
+    :data:`HEALTH_CHECK_CHAOS_MATRIX`'s combined row).
+
+    The numbers are chosen to clear the doctor's documented thresholds with
+    margin: ``n_trials`` completed tells on a never-improving objective over
+    a constant-value seeded history crosses the stagnation window;
+    ``sampler_nan_at`` yields a fallback rate past the storm threshold;
+    ``nan_slots`` quarantines past the budget-loss rate; the planted worker
+    is ``dead_worker_age_s`` stale — orders of magnitude past the liveness
+    grace.
+    """
+
+    n_trials: int = 24
+    batch_size: int = 8
+    seeded_history_plan: int = 1  # PATHOLOGICAL_HISTORY_PLANS index: constant_values
+    nan_slots: Mapping[int, Sequence[int]] = field(
+        default_factory=lambda: {0: (1, 2), 1: (0,), 2: (3,)}
+    )
+    sampler_nan_at: tuple[int, ...] = tuple(range(2, 12))
+    storage_blip_schedule: Mapping[str, Sequence[int]] = field(
+        default_factory=lambda: {
+            "get_all_trials": (0, 1),
+            "set_study_system_attr": (0,),
+        }
+    )
+    dead_worker_id: str = "chaos-host-dead"
+    dead_worker_age_s: float = 3600.0
+    expected_findings: tuple[str, ...] = (
+        "study.stagnation",
+        "sampler.fallback_storm",
+        "executor.quarantine_rate",
+        "worker.dead",
+    )
+
+    @property
+    def expected_quarantined(self) -> int:
+        return sum(len(slots) for slots in self.nan_slots.values())
+
+    def storage_fault_plan(self) -> FaultPlan:
+        """The storage blips (transient, pre-commit, retry-safe) riding
+        along: the reporter's attr writes and the aggregator's reads must
+        survive them under RetryingStorage without changing the findings."""
+        return FaultPlan(schedule=dict(self.storage_blip_schedule))
+
+
+def health_chaos_plan() -> HealthChaosPlan:
+    """The default :class:`HealthChaosPlan` the chaos suite runs — four NaN
+    slots across three batches, eight NaN sampler proposals, a constant
+    seeded history, three storage blips, one hour-stale worker."""
+    return HealthChaosPlan()
+
+
+def plant_dead_worker(
+    study: Any, worker_id: str = "chaos-host-dead", age_s: float = 3600.0
+) -> dict:
+    """Publish the stale health snapshot a SIGKILL'd worker would leave:
+    its last successful publish, ``age_s`` seconds old, never refreshed
+    (the health-reporter analog of :func:`plant_stale_lock`). Returns the
+    snapshot planted. The counters are empty by design — a dead worker's
+    finding must come from *staleness*, not from its counter payload
+    contaminating the fleet rates."""
+    from optuna_tpu_torch.health import DEFAULT_INTERVAL_S, WORKER_ATTR_PREFIX
+
+    snapshot = {
+        "worker": worker_id,
+        "pid": 0,
+        "seq": 1,
+        "last_seen_unix": time.time() - age_s,
+        "interval_s": DEFAULT_INTERVAL_S,
+        "counters": {},
+        "gauges": {},
+        "histograms": {},
+        "jit": {},
+    }
+    study._storage.set_study_system_attr(
+        study._study_id, WORKER_ATTR_PREFIX + worker_id, snapshot
+    )
+    return snapshot
+
+
+# -------------------------------------------------------------- autopilot chaos
+
+
+# Chaos matrix for the autopilot's guarded actions: every action id
+# (``autopilot.py::ACTIONS``) maps to the fault scenario that proves it fires
+# once under cooldown, executes in ``mode="act"``, is only recorded in
+# ``mode="observe"``, and rolls back when its finding does not improve. A
+# hand-written literal equal to the reference's.
+AUTOPILOT_CHAOS_MATRIX: dict[str, str] = {
+    "sampler.restart": "seed a constant history + a never-improving objective past the "
+    "stagnation window; the action fires once, pins an exploration burst, and — the "
+    "objective never improving — rolls back after rollback_after finished trials",
+    "sampler.pin_independent": "inject NaN proposals at storm rate via FaultySampler under "
+    "GuardedSampler; the action fires once and the pin provably stops the storm (fewer "
+    "inner-sampler suggests than the schedule would have poisoned)",
+    "executor.pin_shapes": "record retrace churn past the threshold (jit totals channel); "
+    "the action freezes the executor's requested width at the compiled width and the undo "
+    "restores it",
+    "executor.tighten_regrowth": "inject NaN batch slots past the quarantine-rate "
+    "threshold; the action stretches the probationary regrowth streak on the live executor",
+    "service.shed_earlier": "count shed asks past the backpressure threshold against a "
+    "live hub; the action halves the ShedPolicy thresholds, doubles ready-queue prewarm, "
+    "and the undo restores both exactly",
+    "gp.densify": "publish device.gp.sparse_heldout_err.last past the degradation "
+    "threshold against a study carrying a scan-loop control dict; the action doubles its "
+    "inducing capacity (exact-posterior fallback once at cap) and the undo restores the "
+    "previous thresholds exactly",
+}
+
+
+@dataclass(frozen=True)
+class AutopilotChaosPlan:
+    """One deterministic autopilot chaos scenario: the
+    :class:`HealthChaosPlan` fault mix trimmed to the checks with actuators
+    (stagnation via seeded constant history + never-improving objective,
+    fallback storm via scheduled NaN proposals, an OOM/quarantine pattern
+    via NaN batch slots) plus per-action expectations —
+    ``tests/test_torch_autopilot.py`` asserts, under ``mode="act"``, that
+    exactly :attr:`expected_actions` fire (once each: the cooldown is the
+    storm guard), each is flight-recorded/attr-mirrored, the never-helped
+    stagnation action rolls back, and the study drains with zero RUNNING;
+    the ``mode="observe"`` twin records the identical decision set while
+    staying bit-identical to the autopilot-off twin; the disabled twin
+    allocates nothing over 10k boundary calls.
+
+    Thresholds cleared with margin: ``n_trials`` never-improving completes
+    over a constant seeded history cross ``stagnation_window``;
+    ``sampler_nan_at`` crosses the fallback-storm rate while leaving most
+    of its schedule unspent for the pin to provably cancel; ``nan_slots``
+    cross the quarantine rate without dominating the stagnation window
+    (the containment guard must not suppress the stagnation finding here).
+    """
+
+    n_trials: int = 24
+    batch_size: int = 8
+    seeded_history_plan: int = 1  # PATHOLOGICAL_HISTORY_PLANS index: constant_values
+    stagnation_window: int = 8
+    nan_slots: Mapping[int, Sequence[int]] = field(
+        default_factory=lambda: {0: (1, 2), 1: (0,)}
+    )
+    sampler_nan_at: tuple[int, ...] = tuple(range(2, 40))
+    cooldown_s: float = 3600.0
+    rollback_after: int = 8
+    pin_trials: int = 64
+    budget: int = 8
+    expected_actions: tuple[str, ...] = (
+        "sampler.restart",
+        "sampler.pin_independent",
+        "executor.tighten_regrowth",
+    )
+    #: The action whose finding provably cannot improve (the objective
+    #: never improves), so the acceptance test asserts its rollback.
+    rollback_action: str = "sampler.restart"
+
+    @property
+    def expected_quarantined(self) -> int:
+        return sum(len(slots) for slots in self.nan_slots.values())
+
+
+def autopilot_chaos_plan() -> AutopilotChaosPlan:
+    """The default :class:`AutopilotChaosPlan` the chaos suite runs — a
+    constant seeded history under a never-improving objective, a 38-deep
+    NaN-proposal schedule, three NaN batch slots, hour-long cooldowns."""
+    return AutopilotChaosPlan()
+
+
+# ------------------------------------------------------------------ SLO chaos
+
+
+# Chaos matrix for the SLO engine's objectives: every id
+# (``slo.py::SLO_SPECS``) maps to the burn scenario that proves it can trip.
+# A hand-written literal equal to the reference's.
+SLO_CHAOS_MATRIX: dict[str, str] = {
+    "serve.ask.latency": "overload burst under a floor-level target: every serve.ask "
+    "observation violates, burn crosses critical, service.slo_burn fires with the exact "
+    "violation count and the shed thresholds halve",
+    "storage.op.latency": "latency-injected storage ops (FaultPlan latency_rate) under a "
+    "floor-level target burn the budget; the uninjected twin stays compliant",
+    "dispatch.latency": "a slow objective dispatch under a floor-level target burns; the "
+    "default 30s target stays compliant on the same run",
+    "tell.latency": "slow tells under a floor-level target burn the budget; the fault-free "
+    "twin at the default target stays compliant",
+    "scan.chunk.latency": "a scan chunk under a floor-level target burns; the default "
+    "target stays compliant on the same chunk timings",
+}
+
+
+@dataclass(frozen=True)
+class SLOChaosPlan:
+    """One deterministic SLO-burn chaos scenario: an overload burst of
+    serve-path asks evaluated against a *floor-level* latency target
+    (every real observation violates — no sleeps, no timing races), and
+    the exact outcome the acceptance test asserts
+    (the SLO chaos tests): the sketch p99 crosses the spec, both
+    burn windows cross :data:`optuna_tpu_torch.slo.BURN_CRITICAL`, the doctor
+    reports ``service.slo_burn`` with ``bad == burst_asks`` through the
+    fleet channel, the shed thresholds halve via the policy's SLO feed, the
+    shed events carry rung/depth/stale, and the Perfetto export holds at
+    least one fan-in and one fan-out flow edge. The fault-free twin runs
+    the same burst against the *default* targets and reports every SLO
+    compliant; the disabled twin records nothing over
+    ``disabled_calls`` span entries with a bounded heap.
+    """
+
+    n_clients: int = 4
+    burst_asks: int = 12
+    harsh_target_s: float = 1e-9
+    window_s: float = 60.0
+    objective: float = 0.99
+    quantile: float = 0.99
+    disabled_calls: int = 10_000
+
+    def harsh_spec(self):
+        """The floor-level ``serve.ask.latency`` spec the burst must burn."""
+        from optuna_tpu_torch.slo import SLOSpec
+
+        return SLOSpec(
+            "serve.ask.latency",
+            "serve.ask",
+            self.quantile,
+            self.harsh_target_s,
+            self.objective,
+            self.window_s,
+        )
+
+
+def slo_chaos_plan() -> SLOChaosPlan:
+    """The default :class:`SLOChaosPlan` the chaos suite runs — a 12-ask
+    burst from 4 clients against a 1ns serve.ask target."""
+    return SLOChaosPlan()

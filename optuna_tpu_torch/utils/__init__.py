@@ -2,9 +2,8 @@
 ``optuna/_imports.py``, ``_experimental.py``, ``_deprecated.py``,
 ``_convert_positional_args.py``).
 
-The API-lifecycle decorators and the deferred imports. The reference's
-``_compile_cache`` (the persistent XLA cache) has no counterpart yet
-(ROADMAP A11)."""
+The API-lifecycle decorators and the deferred imports; ``_compile_cache``
+sets where the CUDA kernels' libraries are built."""
 
 from optuna_tpu_torch.utils._compat import (
     convert_positional_args,

@@ -16,9 +16,9 @@ loop's resume (``optimize_scan(resume=True)``) on the CPU.
 - The chaos acceptance, ported from ``tests/test_checkpoint_chaos.py:123,184``
   under ``checkpoint_chaos_plan()`` (96 trials, ``sync_every`` 8, a kill at
   the 44th tell): kill, resume and twin over a journal file; and the
-  corrupt-ring fallback. The reference's fallback case also asserts the
-  doctor's ``checkpoint.stale`` finding (``Study.health_report``), which
-  comes with ROADMAP A11 and is left out here. Also the matrix rows the
+  corrupt-ring fallback, with the doctor's ``checkpoint.stale`` finding
+  (``Study.health_report``, the health reporter publishing at every sync)
+  as in the reference's fallback case. Also the matrix rows the
   reference covers elsewhere: a checkpoint write that fails, and a stale
   blob.
 
@@ -33,7 +33,7 @@ import pytest
 import optuna_tpu
 import optuna_tpu_torch as ot
 from optuna_tpu_torch import checkpoint as ckpt
-from optuna_tpu_torch import telemetry
+from optuna_tpu_torch import health, telemetry
 from optuna_tpu_torch.distributions import FloatDistribution
 from optuna_tpu_torch.models.benchmarks import hartmann6_torch
 from optuna_tpu_torch.parallel import VectorizedObjective, optimize_scan
@@ -425,7 +425,13 @@ def test_corrupt_ring_falls_back_and_recomputes():
         backend.set_study_system_attr(sid, f"{ckpt.CKPT_ATTR_PREFIX}scan:{slot}", "@@torn mid-write@@")
 
     resumed = _load(backend, "corrupt")
-    _optimize(resumed, plan, resume=True)
+    interval = health._interval_s
+    health.enable(interval_s=0.0)
+    try:
+        _optimize(resumed, plan, resume=True)
+    finally:
+        health.disable()
+        health._interval_s = interval  # enable's interval outlives disable
     trials = resumed.trials
     assert len([t for t in trials if t.state == TrialState.COMPLETE]) == plan.n_trials
     assert sum(1 for t in trials if t.state == TrialState.RUNNING) == 0
@@ -435,6 +441,9 @@ def test_corrupt_ring_falls_back_and_recomputes():
     assert counters.get("checkpoint.rejected", 0) >= len(plan.corrupt_slots)
     assert counters.get("checkpoint.fallback", 0) == 1
     assert counters.get("checkpoint.restore", 0) == 0
+    findings = {f["check"]: f for f in resumed.health_report()["findings"]}
+    assert findings["checkpoint.stale"]["severity"] == "WARNING"
+    assert findings["checkpoint.stale"]["evidence"]["fallbacks"] == 1
 
 
 def test_stale_blob_is_skipped_and_the_resume_recomputes():

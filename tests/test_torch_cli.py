@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -149,21 +150,153 @@ def test_trajectory_renders_the_ledger_as_the_reference(capsys):
     assert rc == 2 and "no BENCH_TRAJECTORY.json" in err
 
 
-@pytest.mark.parametrize("command,item", [("metrics", "A11"), ("trace", "A11"), ("doctor", "A11"),
-                                          ("autopilot", "A11"), ("slo", "A9")])
-def test_commands_of_unported_modules_exit_2_naming_their_item(command, item, capsys):
-    argv = [command] + (["--study-name", "s"] if command == "doctor" else [])
-    rc, out, err = _run(cli.main, capsys, *argv)
-    assert rc == 2 and out == ""
-    assert f"ROADMAP item {item}" in err and f"`{command}`" in err
-    assert cli.NOT_YET_PORTED[command][0] == item
-    # The reference's flags stay in the parser: they parse, then the command refuses.
-    flags = {"metrics": ["--format", "prom", "--endpoint", "http://localhost:1"],
-             "trace": ["-f", "events", "--trial", "3", "-o", "x.json"],
-             "doctor": ["--study-name", "s", "-f", "json"],
-             "autopilot": ["--study-name", "s", "-f", "json"],
-             "slo": ["-f", "json", "--endpoint", "http://localhost:1"]}[command]
-    assert _run(cli.main, capsys, command, *flags)[0] == 2
+class _Clock:
+    def __init__(self) -> None:
+        self.t = 50.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+@pytest.fixture
+def observability_state():
+    """Both packages' telemetry, flight, SLO and health state, scripted the
+    same way on injected clocks, and restored afterwards."""
+    from optuna_tpu import flight as rf, slo as rs, telemetry as rt
+    from optuna_tpu_torch import flight as pf, slo as ps, telemetry as pt
+
+    pairs = ((rt, rf, rs), (pt, pf, ps))
+    saved = [(t.get_registry(), t.enabled(), f.get_recorder(), f.enabled(), s.enabled(), s.get_engine())
+             for t, f, s in pairs]
+    for t, f, s in pairs:
+        clock = _Clock()
+        t.enable(t.MetricsRegistry(clock=clock))
+        f.enable(f.FlightRecorder(capacity=256, clock=clock, epoch=1000.0, trace_id="0123456789abcdef"))
+        s.enable(clock=clock)
+        f.reset_jit_totals()
+        for i in range(6):
+            with f.span("ask"), t.span("ask"):
+                clock.t += 0.002 * (i + 1)
+            f.trial_event("ask", i)
+            with f.span("dispatch", i), t.span("dispatch"):
+                clock.t += 0.25
+            t.count("sampler.fallback.relative" if i % 2 else "storage.retry")
+            with f.span("tell", i), t.span("tell"):
+                clock.t += 0.01
+            f.trial_event("tell", i, "COMPLETE")
+            clock.t += 7.0
+        t.set_gauge("device.gp.sparse_heldout_err.last", 0.625)
+        f._note_jit_compile("gp.suggest_fused", 1.5, False)
+    yield
+    for (t, f, s), (registry, t_on, recorder, f_on, s_on, engine) in zip(pairs, saved):
+        t.enable(registry)
+        if not t_on:
+            t.disable()
+        f.enable(recorder)
+        if not f_on:
+            f.disable()
+        f.reset_jit_totals()
+        s.disable()
+        s._ENGINE = engine
+        if s_on:
+            s.enable()
+
+
+def _doctor_storage(tmp_path) -> str:
+    """A sqlite study written by the port: trials, a live worker's and a dead
+    worker's health snapshots, and an act-mode autopilot decision with its
+    rollback mirrored."""
+    from optuna_tpu_torch import autopilot, health, telemetry
+    from optuna_tpu_torch.testing.fault_injection import plant_dead_worker
+
+    url = f"sqlite:///{tmp_path}/doctor.db"
+    study = optuna_tpu_torch.create_study(storage=url, study_name="s",
+                                          sampler=optuna_tpu_torch.samplers.RandomSampler(seed=0))
+    settings = {k: getattr(health, k) for k in ("_interval_s", "_worker_id", "_clock", "_now")}
+    telemetry.enable(telemetry.MetricsRegistry())
+    health.enable(interval_s=0.0, worker_id="w-live")
+    try:
+        study.optimize(lambda t: 1.0 + t.suggest_float("x", 0, 1), n_trials=4)
+        study.optimize(lambda t: 2.0 + t.suggest_float("x", 0, 1), n_trials=20)
+    finally:
+        health.disable()
+        for key, value in settings.items():  # enable's settings outlive disable
+            setattr(health, key, value)
+    plant_dead_worker(study, worker_id="w-dead", age_s=3600.0)
+    pilot = autopilot.Autopilot(study, autopilot.AutopilotPolicy(
+        mode="act", rollback_after=1, cooldown_s=3600.0, clock=lambda: 0.0, now=lambda: 1_700_000_000.0))
+    study._scan_gp_control = {"n_exact_max": 12, "n_inducing": 64}
+    telemetry.set_gauge("device.gp.sparse_heldout_err.last", 1.5)
+    pilot.step()  # decides gp.densify (and stagnation, which has no target here)
+    study.optimize(lambda t: 3.0, n_trials=1)
+    pilot.step()  # the error did not fall: rolled back
+    telemetry.disable()
+    return url
+
+
+def _masked(text: str, command: str) -> str:
+    """What may differ between two processes' runs of one command: the
+    report stamp, the snapshot ages, the process name of a trace, and the
+    package's own names in hints."""
+    text = text.replace("OPTUNA_TPU_TORCH_", "OPTUNA_TPU_").replace("optuna-tpu-torch", "optuna-tpu")
+    text = re.sub(r'"generated_unix": [0-9.e+]+', '"generated_unix": 0', text)
+    text = re.sub(r'"age_s": [0-9.e+]+', '"age_s": 0', text)
+    text = re.sub(r"last seen [0-9.]+s ago", "last seen Ns ago", text)
+    text = re.sub(r"""(["'])w-dead\1: [0-9.]+""", r"\1w-dead\1: N", text)  # a dead worker's age as evidence
+    text = re.sub(r'"name": "optuna-tpu\[[0-9a-f]+\]"', '"name": "<process>"', text)
+    return re.sub(r'"pid": [0-9]+', '"pid": 0', text)
+
+
+OBSERVABILITY_CASES = {
+    "metrics json": ["metrics", "-f", "json"],
+    "metrics prom": ["metrics", "-f", "prom"],
+    "trace chrome": ["trace"],
+    "trace events of one trial": ["trace", "-f", "events", "--trial", "2"],
+    "doctor json": ["doctor", "--study-name", "s", "-f", "json"],
+    "doctor text": ["doctor", "--study-name", "s"],
+    "autopilot json": ["autopilot", "--study-name", "s", "-f", "json"],
+    "autopilot text": ["autopilot", "--study-name", "s"],
+    "slo json": ["slo", "-f", "json"],
+    "slo text": ["slo"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(OBSERVABILITY_CASES))
+def test_observability_commands_match_the_reference(case, tmp_path, capsys, observability_state):
+    """Each of ``metrics``, ``trace``, ``doctor``, ``autopilot`` and ``slo``,
+    in json and text, prints what the reference's prints: on one sqlite file
+    for the storage commands, on the same scripted telemetry, flight and SLO
+    state for the process-local ones."""
+    argv = list(OBSERVABILITY_CASES[case])
+    if argv[0] in ("doctor", "autopilot"):
+        argv = ["--storage", _doctor_storage(tmp_path)] + argv
+    ref = _run(ref_cli.main, capsys, *argv)
+    port = _run(cli.main, capsys, *argv)
+    assert port[0] == ref[0] == 0, port[2]
+    assert _masked(port[1], argv[0]) == _masked(ref[1], argv[0])
+    assert port[1].strip()
+    if case == "doctor json":
+        checks = {f["check"] for f in json.loads(port[1])["findings"]}
+        assert {"worker.dead", "study.stagnation"} <= checks
+    if case == "autopilot json":
+        (loop,) = json.loads(port[1])["autopilots"]
+        assert [(r["action"], r["state"]) for r in loop["actions"] if r["action"] == "gp.densify"] == [
+            ("gp.densify", "rolled_back")
+        ]
+    assert cli.NOT_YET_PORTED == {}
+
+
+def test_the_trace_command_writes_a_file_and_the_endpoint_flags_hold(tmp_path, capsys, observability_state):
+    out = tmp_path / "trace.json"
+    rc, printed, _ = _run(cli.main, capsys, "trace", "-o", str(out))
+    assert rc == 0 and printed.strip() == str(out)
+    assert json.loads(out.read_text())["otherData"]["trace_id"] == "0123456789abcdef"
+    rc, _, err = _run(cli.main, capsys, "trace", "--endpoint", "http://127.0.0.1:1", "-f", "events")
+    assert rc == 2 and "Chrome trace JSON only" in err
+    rc, _, err = _run(cli.main, capsys, "metrics", "--endpoint", "http://127.0.0.1:1/metrics", "-f", "json")
+    assert rc == 2 and "pass the matching --format" in err
+    rc, _, err = _run(cli.main, capsys, "autopilot")
+    assert rc == 2 and "--study-name is required" in err
 
 
 def test_usage_errors_match_the_reference(capsys):

@@ -417,3 +417,48 @@ def test_plotting_and_table_packages_are_imported_only_where_used():
     module of the port imports them at its top level."""
     for path in sorted(PACKAGE.rglob("*.py")):
         assert not (_module_level_roots(path) & set(CARD_HOST_MISSING)), path
+
+
+OBSERVABILITY_MODULES = [
+    "optuna_tpu_torch._device_policy",
+    "optuna_tpu_torch._tracing",
+    "optuna_tpu_torch.autopilot",
+    "optuna_tpu_torch.device_stats",
+    "optuna_tpu_torch.flight",
+    "optuna_tpu_torch.health",
+    "optuna_tpu_torch.locksan",
+    "optuna_tpu_torch.slo",
+    "optuna_tpu_torch.storages._grpc",
+    "optuna_tpu_torch.storages._grpc.fleet",
+    "optuna_tpu_torch.telemetry",
+    "optuna_tpu_torch.utils._compile_cache",
+]
+
+
+def test_the_observability_modules_import_with_jax_and_the_reference_blocked():
+    """The observability and control modules, which the reference keeps to
+    the standard library, import with ``jax`` and ``optuna_tpu`` refused,
+    and the doctor, the autopilot and the SLO engine run a report there."""
+    assert set(OBSERVABILITY_MODULES) <= set(_all_modules())
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {OBSERVABILITY_MODULES!r}: importlib.import_module(m)\n"
+        "import optuna_tpu_torch as ot\n"
+        "from optuna_tpu_torch import autopilot, health, slo, telemetry\n"
+        "study = ot.create_study()\n"
+        "assert health.report_for_study(study)['healthy']\n"
+        "assert autopilot.export_report()['autopilots'] == []\n"
+        "assert slo.export_report()['enabled'] is False\n"
+        "assert telemetry.render_prometheus() == '\\n'\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO, timeout=120
+    )
+    assert out.returncode == 0, out.stderr

@@ -19,7 +19,6 @@ too, over sqlite and a journal file.
 
 Not ported, and why:
 
-* the flight-recorder lifecycle (``:419``): the flight recorder is A11;
 * the compile-count bound (``:378``): nothing is compiled here;
 * the per-trial race (``:480``): a wall-clock comparison, slow-marked in
   the reference, and meaningless on a CPU runner.
@@ -385,6 +384,26 @@ def test_scan_phases_recorded_on_the_shared_vocabulary():
     assert phases["scan.sync"]["count"] == 2
     assert phases["dispatch"]["count"] == 1  # the startup evaluator
     assert "scan.chunk" in telemetry.PHASES and "scan.sync" in telemetry.PHASES
+
+
+def test_flight_records_scan_trial_lifecycle():
+    """The reference's ``tests/test_scan_loop.py::test_flight_records_scan_trial_lifecycle``:
+    one ask and one tell instant a trial, and the chunk and sync spans."""
+    from optuna_tpu_torch import flight
+
+    was = flight.enabled(), flight.get_recorder()
+    flight.enable(flight.FlightRecorder(capacity=8192))
+    try:
+        _scan(_study(), _hartmann_objective(), 12, sync_every=6, n_startup_trials=6, seed=0)
+        evs = flight.events()
+    finally:
+        flight.enable(was[1])
+        if not was[0]:
+            flight.disable()
+    trial_events = [e for e in evs if e.kind == "trial"]
+    assert sum(e.name == "ask" for e in trial_events) == 12
+    assert sum(e.name == "tell" for e in trial_events) == 12
+    assert {"scan.chunk", "scan.sync"} <= {e.name for e in evs if e.kind == "phase"}
 
 
 def test_disabled_telemetry_adds_zero_per_chunk_allocations():
