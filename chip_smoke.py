@@ -120,16 +120,16 @@ Phases (any failure exits non-zero and prints no result line):
     (``sample_relative_batch``) at each size: 8 points in the box, not all
     one (the reference's test), with the distinct ones counted.
 26. Running trials (qLogEI from worker threads): ``n_jobs`` 2 and 4 from
-    1000 seeded trials (6 and 8 trials), with an objective slower than an ask (0.2 s, then
+    1000 seeded trials (4 and 6 trials), with an objective slower than an ask (0.2 s, then
     held while an ask is in flight): at least asks less workers take
-    ``_build_qlogei`` (a script-side wrap), all COMPLETE; then 2 asks from
-    1000 and from 4000 beside a RUNNING trial, K1 once an ask from 4000
+    ``_build_qlogei`` (a script-side wrap), all COMPLETE; then 1 ask from
+    1000 and 1 from 4000 beside a RUNNING trial, K1 once an ask from 4000
     (the sparse host fit).
 27. Constraints: Hartmann-20D with ``sum(x) - 10 <= 0`` through
-    ``constraints_func``; 2 asks from 1000 seeded trials with constraint
-    attrs, 2 from 4000 with K1 exactly 2 an ask (objective and constraint).
-28. LogEHVI: ZDT1 (30 variables) 3 asks from 300 seeded trials, 3-objective
-    DTLZ2 (12 variables) 3 asks from 200; the box count, s an ask, the
+    ``constraints_func``; 1 ask from 1000 seeded trials with constraint
+    attrs, 1 from 4000 with K1 exactly 2 an ask (objective and constraint).
+28. LogEHVI: ZDT1 (30 variables) 2 asks from 300 seeded trials, 3-objective
+    DTLZ2 (12 variables) 2 asks from 200; the box count, s an ask, the
     kernels (and copies) of one more ask and the synchronizing calls of
     another, K1 exactly 0; one ask on the card and one on the CPU from the
     same 64 seeded trials and seed: proposals within 1e-3 (normalized), or
@@ -221,13 +221,42 @@ Phases (any failure exits non-zero and prints no result line):
     through ``optimize_vectorized(autopilot=...)`` on the card; the device
     policy's round trip, which must keep small kernels on the card.
 
+35. Config #2's GP served from the card: a ``SuggestService`` whose hub
+    sampler is ``GPSampler(seed=0)``, reached through the server's
+    grpc-free request dispatcher (wire codec, op tokens: ``bench.py
+    --loop=serve --transport=handler``), over the 1100 trials of
+    :func:`history_trials` (every dispatch SGPR, K1 once). (a) One
+    ``ThinClientSampler`` with ``ready_ahead=0``: 3 trials identical to a
+    local ``GPSampler(seed=0)`` study's, K1 once an ask on each side.
+    (b) 8 client threads x 2 asks, ``max_coalesce=8``, ``ready_ahead=8``,
+    ``invalidate_after=8``, a 50 ms coalesce window, the shed ladder above
+    8: widest dispatch >= 2, no shed, every trial COMPLETE and served (no
+    fallback attr, no local independent answer), K1 once a coalesced
+    dispatch and once a refill; ready-queue hits and misses, the client's
+    ``service_ask`` p50/p99, ms a served trial; then a third round (the
+    ready queue emptied, so it coalesces as the first did) under the
+    profiler for the device's busy share. (c) Two hubs (``FakeHubFleet``) over one sqlite file,
+    ``checkpoint_every=4``: a ``FleetClient`` thin client runs 8 trials on
+    the owner, one answer dropped after it committed (the redial replays
+    it: no second dispatch); the owner killed, 2 more trials through the
+    survivor: the lease epoch bumped to it, one ``checkpoint.warm_load``,
+    and the cold first dispatch beside the warm one after the re-home.
+
+The longest CPU twins (phase 7's hypervolume, phase 21's M = 5 HSSP,
+phase 28's two LogEHVI asks and phase 33's terminator evaluators, each with
+``device="cpu"``) run in one helper process (:class:`CpuTwins`, niced,
+never touching the card) from the start, beside the card's
+phases; each phase holds the card's result against its twin when it gets
+there. Their seconds are the helper's, beside the card's work.
+
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34) and
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34, 35) and
 read just after it; every kernel must have launched on its path, the
 single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
 phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
 chunk and a swap-in on phase 32, K1 and K3 exactly as counted on phase 33
-(no other kernel), K1 exactly as its spy counts on phase 34, and the
+(no other kernel), K1 exactly as its spy counts on phase 34, K1 once a
+hub dispatch on phase 35, and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -832,7 +861,7 @@ def host_loo(front: np.ndarray, ref: np.ndarray) -> np.ndarray:
     return np.array([max(total - host_hv(np.delete(front, i, axis=0), ref), 0.0) for i in range(len(front))])
 
 
-def phase_hv() -> float:
+def phase_hv(twins: CpuTwins) -> float:
     import torch
 
     from optuna_tpu_torch.hypervolume import compute_hypervolume, loo_contributions
@@ -840,29 +869,25 @@ def phase_hv() -> float:
     from optuna_tpu_torch.ops import wfg
     from optuna_tpu_torch.ops.kernels import wfg as kernels
 
-    front = np.random.RandomState(0).uniform(0.0, 1.0, size=(512, 5))
-    ref = np.ones(5)
-    runs = {}
-    for label, dev in (("card", None), ("cpu", "cpu")):
-        wfg.reset_stats()
-        before = kernels.STACK_LAUNCHES
-        t0 = time.perf_counter()
-        hv = compute_hypervolume(front, ref, device=dev)
-        torch.cuda.synchronize()
-        runs[label] = (hv, time.perf_counter() - t0, dict(wfg.STATS), kernels.STACK_LAUNCHES - before)
+    front, ref = hv_front()
+    wfg.reset_stats()
+    before = kernels.STACK_LAUNCHES
+    t0 = time.perf_counter()
+    hv = compute_hypervolume(front, ref)
+    torch.cuda.synchronize()
+    card_s, stats, launches = time.perf_counter() - t0, dict(wfg.STATS), kernels.STACK_LAUNCHES - before
     t0 = time.perf_counter()
     pareto = _pareto_filter(front)
     oracle = _compute_hv_recursive(pareto, ref)
     oracle_s = time.perf_counter() - t0
-    hv, card_s, stats, launches = runs["card"]
-    cpu_hv, cpu_s, cpu_stats, _ = runs["cpu"]
+    cpu_hv, cpu_s, cpu_stats = twins.get("hv")
     e_f64 = abs(hv - oracle) / oracle
     e_cpu = abs(hv - cpu_hv) / abs(cpu_hv)
     print(
         f"hypervolume M=5, 512 points (front {len(pareto)}, bucket {wfg._pad_bucket(len(pareto))}): card {hv:.9f} "
         f"in {card_s:.4f} s ({stats['nodes']} stack iterations, {launches} stack launch(es), "
         f"{stats['syncs']} host sync(s)); CPU {cpu_hv:.9f} in {cpu_s:.3f} s ({cpu_stats['nodes']} stack "
-        f"iterations); host f64 oracle {oracle:.9f} in {oracle_s:.3f} s; card faster than the oracle: "
+        f"iterations; the helper process); host f64 oracle {oracle:.9f} in {oracle_s:.3f} s; card faster than the oracle: "
         f"{card_s < oracle_s}; rel err vs f64 {e_f64:.3e} (tolerance {HV_TOL_F64}), "
         f"vs CPU {e_cpu:.3e} (tolerance {HV_TOL_CPU})"
     )
@@ -974,25 +999,23 @@ def seeded_study(n_history: int, seed: int = 0, constraint: bool = False, **samp
     return study
 
 
-def device_profile(prof) -> tuple[float, int, list, object]:
+def device_busy(prof) -> tuple[float, int]:
     """From a finished ``torch.profiler`` run: the device's busy ms and kernel
     count, summed over the device-side events only (an operator's row repeats
-    its kernels' time, so summing every row counts each kernel twice), and
-    the host-side operators sorted by the device time of their kernels. The
+    its kernels' time, so summing every row counts each kernel twice). The
     port's ``record_function`` ranges (``telemetry.trace_name``, such as the
-    scan loop's ``scan.chunk``) also show as device-side rows spanning all
-    inside them; they are left out."""
+    scan loop's ``scan.chunk``) also show as device-side events spanning all
+    inside them; they are left out. Read from the profiler's raw events:
+    ``key_averages`` first builds a Python object an event, minutes for a
+    served study's ~600k kernels."""
     from torch.autograd import DeviceType
 
-    events = prof.key_averages()
-    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))  # noqa: E731
-    on_device = [
-        e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("optuna_tpu_torch.")
-    ]
-    busy_ms = sum(dev(e) for e in on_device) / 1e3
-    kernels = sum(e.count for e in on_device)
-    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA), key=dev, reverse=True)
-    return busy_ms, kernels, ops, dev
+    busy_ns = count = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.name().startswith("optuna_tpu_torch."):
+            busy_ns += e.duration_ns()
+            count += 1
+    return busy_ns / 1e6, count
 
 
 def profiled(label: str, fn) -> tuple[float, float, int, int, int]:
@@ -1008,8 +1031,12 @@ def profiled(label: str, fn) -> tuple[float, float, int, int, int]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, kernels, ops, dev = device_profile(prof)
+    from torch.autograd import DeviceType
+
+    busy_ms, kernels = device_busy(prof)
     events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))  # noqa: E731
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA), key=dev, reverse=True)
     dtoh = sum(e.count for e in events if "DtoH" in e.key)
     syncs = sum(e.count for e in events if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     print(
@@ -2136,7 +2163,7 @@ def hssp_stack_check(device) -> None:
         fail("wfg_stack at the HSSP's shapes differs from the plain stack loop")
 
 
-def phase_hssp(stack) -> dict:
+def phase_hssp(stack, twins: CpuTwins) -> dict:
     """The device HSSP at ``bench.py::run_hv_selection``'s shapes: 512
     ``RandomState(0)`` uniform points, M = 5, ``ones(5)``, k = 16, through K3
     (one launch a greedy step), against ``device="cpu"`` (the plain stack
@@ -2153,13 +2180,10 @@ def phase_hssp(stack) -> dict:
         before = stack.STACK_LAUNCHES
         card, card_s = timed(lambda: solve_hssp_device(front, ref, HSSP_K))
         launches = stack.STACK_LAUNCHES - before
-        # The CPU has this process alone: the plain stack loop batches all
-        # candidates in one lockstep chunk (its bits do not depend on the chunk).
-        saved, stack._PLAIN_ELEMENTS = stack._PLAIN_ELEMENTS, 1 << 24
-        try:
+        if m == HSSP_M:
+            cpu, cpu_s = twins.get("hssp")
+        else:
             cpu, cpu_s = timed(lambda: solve_hssp_device(front, ref, HSSP_K, device="cpu"))
-        finally:
-            stack._PLAIN_ELEMENTS = saved
         host, host_s = timed(lambda: host_hssp(front, ref, HSSP_K))
         gaps = {label: parting_gap(card, other, front, ref) for label, other in (("CPU", cpu), ("host", host))}
         # The picks' f32 hypervolume by the plain stack (a check: no launch on the path's count).
@@ -2385,8 +2409,9 @@ def phase_cmaes(gpu: str) -> dict:
 CHAIN_Q = 8  # bench.py's config #2: GPSampler(seed=0, speculative_chain=8)
 CHAIN_EXACT_FROM, CHAIN_EXACT_TRIALS = 960, 32  # 4 dispatches at n = 960 ... 984, all at bucket 1024
 CHAIN_SPARSE_FROM, CHAIN_SPARSE_TRIALS = 4000, 16  # 2 sparse dispatches, K1 once each
-RUNNING_TRIALS = {2: 6, 4: 8}  # n_jobs -> trials from 1000 seeded ones: several qLogEI asks a setting (8 and 12
-#                                 before PR 13, cut to pay for phase 34)
+RUNNING_TRIALS = {2: 4, 4: 6}  # n_jobs -> trials from 1000 seeded ones: 2 qLogEI asks a setting at least (8 and
+#                                 12, then 6 and 8, cut as the script's total neared its limit)
+RUNNING_SEQ_ASKS = 1  # asks beside one RUNNING trial from 1000 and from 4000 (2 before the same cut)
 GP_CARD_CPU_TOL = 1e-3  # the first host-route ask on the card against the CPU, normalized space
 GP_TIE = 1e-3  # ... a parting is allowed only where the two winners' acquisition values are this close
 ZDT_GP_FROM, DTLZ_GP_FROM = 300, 200
@@ -2604,9 +2629,9 @@ def add_running_trial(study) -> int:
 
 def phase_running(k1_count) -> dict:
     """qLogEI from n_jobs worker threads on the card: 1000 seeded trials,
-    then trials at n_jobs 2 and 4; then 2 sequential asks beside a RUNNING
-    trial from 1000 (the exact host fit) and from 4000 (the sparse host
-    fit, K1 once an ask)."""
+    then trials at n_jobs 2 and 4; then ``RUNNING_SEQ_ASKS`` sequential asks
+    beside a RUNNING trial from 1000 (the exact host fit) and from 4000 (the
+    sparse host fit, K1 once an ask)."""
     import threading
 
     import torch
@@ -2666,16 +2691,17 @@ def phase_running(k1_count) -> dict:
         before = k1_count()
         t0 = time.perf_counter()
         try:
-            study.optimize(hartmann20, n_trials=2)
+            study.optimize(hartmann20, n_trials=RUNNING_SEQ_ASKS)
             torch.cuda.synchronize()
         finally:
             qlogei.close()
-        ask_s = (time.perf_counter() - t0) / 2
+        ask_s = (time.perf_counter() - t0) / RUNNING_SEQ_ASKS
         k1 = k1_count() - before
         study.tell(running, 1.0)
-        check_gp_trials(f"running {label}", study, n0, 3)
-        if len(qlogei.calls) != 2 or k1 != 2 * k1_each:
-            fail(f"running {label}: {len(qlogei.calls)} qLogEI asks and {k1} K1 launches, expected 2 and {2 * k1_each}")
+        check_gp_trials(f"running {label}", study, n0, RUNNING_SEQ_ASKS + 1)
+        if len(qlogei.calls) != RUNNING_SEQ_ASKS or k1 != RUNNING_SEQ_ASKS * k1_each:
+            fail(f"running {label}: {len(qlogei.calls)} qLogEI asks and {k1} K1 launches, expected "
+                 f"{RUNNING_SEQ_ASKS} and {RUNNING_SEQ_ASKS * k1_each}")
         out[label] = {"s": ask_s, "k1": k1}
     print(
         "running trials (qLogEI, Hartmann-20D, from 1000; objective 0.2 s then held while an ask is in flight): "
@@ -2683,15 +2709,15 @@ def phase_running(k1_count) -> dict:
                     f"qLogEI at {out[j]['qlogei_ask_s']:.3f} s an ask (median), the others (the workers' first, "
                     f"the fused route) {', '.join(f'{s:.3f}' for s in out[j]['other_ask_s'])} s"
                     for j in RUNNING_TRIALS)
-        + f"; 2 sequential asks beside one RUNNING trial: {out['exact']['s']:.3f} s an ask from 1000, "
-        f"{out['sparse']['s']:.3f} s from 4000 (K1 {out['sparse']['k1']} over the 2); all COMPLETE"
+        + f"; {RUNNING_SEQ_ASKS} sequential ask(s) beside one RUNNING trial: {out['exact']['s']:.3f} s an ask from "
+        f"1000, {out['sparse']['s']:.3f} s from 4000 (K1 {out['sparse']['k1']}); all COMPLETE"
     )
     return out
 
 
 def phase_constraints(k1_count) -> dict:
     """Hartmann-20D with ``sum(x) - 10 <= 0`` through ``constraints_func``:
-    2 asks from 1000 seeded trials that carry constraint attrs, 2 from
+    1 ask from 1000 seeded trials that carry constraint attrs, 1 from
     4000 (K1 twice an ask: the objective's and the constraint's sparse
     fits)."""
     import torch
@@ -2700,7 +2726,7 @@ def phase_constraints(k1_count) -> dict:
     from optuna_tpu_torch.samplers import GPSampler
 
     out = {}
-    for n_seeded, asks, k1_each in ((1000, 2, 0), (4000, 2, 2)):  # 4 asks from 1000 before phase 34
+    for n_seeded, asks, k1_each in ((1000, 1, 0), (4000, 1, 2)):  # 2 each before the total neared its limit
         study = seeded_study(n_seeded, constraint=True, constraints_func=sum_constraint)
         n0 = len(study.get_trials(deepcopy=False))
         wraps = _Spy(GPSampler, "_wrap_constraints", lambda a, kw, o: o[0])
@@ -2793,22 +2819,29 @@ def first_proposal(objective, dim: int, n_obj: int, n0: int, device: str) -> tup
     return (*om.calls[0], time.perf_counter() - t0)
 
 
-def phase_mo_gp(k1_count) -> dict:
-    """LogEHVI on the card: ZDT1 (30 variables, 2 objectives) 3 asks from
-    300 seeded trials, DTLZ2 (12 variables, 3 objectives) 3 asks from 200;
+def mo_routes() -> tuple:
+    """Phase 28's routes: (label, objective, variables, objectives, seeded
+    trials, asks)."""
+    from optuna_tpu_torch.models.benchmarks import zdt1
+
+    return (
+        ("ZDT1", lambda t: zdt1(t, dim=ZDT_DIM), ZDT_DIM, 2, ZDT_GP_FROM, 2),  # 5 asks before phase 34, then 3
+        ("DTLZ2", lambda t: dtlz2(t), DTLZ2_DIM, 3, DTLZ_GP_FROM, 2),  # 3 before the script's total neared its limit
+    )
+
+
+def phase_mo_gp(k1_count, twins: CpuTwins) -> dict:
+    """LogEHVI on the card: ZDT1 (30 variables, 2 objectives) 2 asks from
+    300 seeded trials, DTLZ2 (12 variables, 3 objectives) 2 asks from 200;
     the box count, s an ask, the kernels of one more ask and the
-    synchronizing calls of another; then one ask on the card and one on the CPU from the same
-    ``MO_PARITY_FROM`` seeded trials (a CPU ask from 300 ZDT1 trials takes
+    synchronizing calls of another; then one ask on the card and one on the CPU (in the helper process)
+    from the same ``MO_PARITY_FROM`` seeded trials (a CPU ask from 300 ZDT1 trials takes
     ~100 s on the card's host)."""
     import torch
 
     from optuna_tpu_torch.gp import optim_mixed
-    from optuna_tpu_torch.models.benchmarks import zdt1
 
-    routes = (
-        ("ZDT1", lambda t: zdt1(t, dim=ZDT_DIM), ZDT_DIM, 2, ZDT_GP_FROM, 3),  # 5 asks before phase 34
-        ("DTLZ2", lambda t: dtlz2(t), DTLZ2_DIM, 3, DTLZ_GP_FROM, 3),
-    )
+    routes = mo_routes()
     out = {}
     for label, objective, dim, n_obj, n0, asks in routes:
         study = seeded_mo_study(objective, dim, n_obj, n0)
@@ -2831,7 +2864,7 @@ def phase_mo_gp(k1_count) -> dict:
         kernels, sites = kernels_and_syncs(lambda: study.optimize(objective, n_trials=1))
         trace_s = time.perf_counter() - t0
         card = first_proposal(objective, dim, n_obj, MO_PARITY_FROM, "cuda")
-        cpu = first_proposal(objective, dim, n_obj, MO_PARITY_FROM, "cpu")
+        cpu = twins.get("mo_parity")[label]
         (x_card, v_card), (x_cpu, v_cpu) = card[2], cpu[2]
         gap = float(np.max(np.abs(x_card - x_cpu)))
         if gap > GP_CARD_CPU_TOL:
@@ -3405,9 +3438,9 @@ def analysis_importance(study) -> dict:
     return out
 
 
-def analysis_terminator(study, k1_count) -> dict:
+def analysis_terminator(study, k1_count, twins: CpuTwins) -> dict:
     """RegretBound and EMMR at n = 1100 on the card (K1 once a sparse fit) and
-    on the CPU."""
+    on the CPU (:func:`cpu_terminator`, in the helper process)."""
     from optuna_tpu_torch.terminator import EMMREvaluator, RegretBoundEvaluator
 
     trials = study.get_trials(deepcopy=False)
@@ -3418,7 +3451,7 @@ def analysis_terminator(study, k1_count) -> dict:
         before = k1_count()
         card, card_s = timed(lambda: cls().evaluate(trials, study.direction))
         k1 = k1_count() - before
-        cpu, cpu_s = timed(lambda: cls(device="cpu").evaluate(trials, study.direction))
+        cpu, cpu_s = twins.get("terminator")[cls.__name__]
         if k1 != fits:
             fail(f"terminator {cls.__name__}: K1 launched {k1} times, expected {fits} (one a sparse fit)")
         if not (math.isfinite(card) and math.isfinite(cpu)) or abs(card - cpu) > TERMINATOR_TOL * sd:
@@ -3620,11 +3653,11 @@ def analysis_cli() -> float:
     return ask_s + tell_s
 
 
-def phase_analysis(k1_count, stack) -> dict:
+def phase_analysis(k1_count, stack, twins: CpuTwins) -> dict:
     """Phase 33 (see the module docstring)."""
     study = analysis_study()
     importance = analysis_importance(study)
-    terminator = analysis_terminator(study, k1_count)
+    terminator = analysis_terminator(study, k1_count, twins)
     callbacks = analysis_callbacks(k1_count)
     hv = analysis_hypervolume(stack)
     figures_s = analysis_figures(study)
@@ -4014,6 +4047,389 @@ def phase_autopilot(k1_count) -> dict:
     return {"k1": k1, "verdict": verdict, "s": seconds, "per_chunk": per_chunk, "act_s": act_s, "chunk_s": chunk_s}
 
 
+SERVE_HISTORY = 1100  # config #2's history past N_EXACT_MAX = 1024: every hub dispatch is SGPR (m = 256, K1)
+SERVE_TWIN_TRIALS = 3
+SERVE_CLIENTS, SERVE_ASKS = 8, 2
+SERVE_WINDOW_S = 0.05  # long enough for the eight client threads to meet in one window
+SERVE_FLEET_TRIALS, SERVE_AFTER_KILL = 8, 2  # 4 after the kill before the script's total neared its limit
+SERVE_CKPT_EVERY = 4
+
+
+def serve_stack(storage, factory, **kwargs):
+    """A ``SuggestService`` over ``storage`` behind the server's grpc-free
+    request dispatcher (``testing.fault_injection.mount_dispatch``: wire
+    codec, op tokens, dispatch; ``bench.py --loop=serve --transport=handler``).
+    Returns (service, mounted storage, ask callable for ``ThinClientSampler``
+    that records each RPC's seconds)."""
+    from optuna_tpu_torch.storages._grpc.suggest_service import SuggestService
+    from optuna_tpu_torch.testing.fault_injection import mount_dispatch, thin_client_ask
+
+    kwargs.setdefault("health_reporting", False)
+    service = SuggestService(storage, factory, **kwargs)
+    mounted, rpc = mount_dispatch(storage, service)
+    served = thin_client_ask(rpc)
+    ask_s: list[float] = []
+
+    def ask(study_id, trial_id, number, token):
+        t0 = time.perf_counter()
+        try:
+            return served(study_id, trial_id, number, token)
+        finally:
+            ask_s.append(time.perf_counter() - t0)
+
+    ask.seconds = ask_s
+    return service, mounted, ask
+
+
+def check_served(label: str, study, first: int, n_new: int, samplers=()) -> None:
+    """``check_gp_trials``, and nothing degraded on the way: no
+    ``sampler_fallback:`` attr on a trial or the study, and every ask of
+    every thin client answered by the service (no shed, no local
+    independent sampling)."""
+    check_gp_trials(label, study, first, n_new)
+    new = study.get_trials(deepcopy=False)[first:]
+    if not all(in_distributions(t) for t in new):
+        fail(f"{label}: a served trial is outside its distributions")
+    attrs = [k for t in new for k in t.system_attrs if k.startswith("sampler_fallback:")]
+    attrs += [k for k in study.system_attrs if k.startswith("sampler_fallback:")]
+    if attrs:
+        fail(f"{label}: degraded asks: {attrs}")
+    sources = [s for sampler in samplers for s in sampler.served_sources]
+    if samplers and (len(sources) != n_new or not set(sources) <= {"coalesced", "ready_queue"}):
+        fail(f"{label}: {len(sources)} served answers for {n_new} trials, sources {sorted(set(sources))}")
+
+
+def phase_serve(k1_count) -> dict:
+    """Phase 35 (see the module docstring)."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch import telemetry
+    from optuna_tpu_torch.models.benchmarks import hartmann20
+    from optuna_tpu_torch.samplers import GPSampler, RandomSampler
+    from optuna_tpu_torch.storages import InMemoryStorage, RDBStorage
+    from optuna_tpu_torch.storages._grpc.fleet import read_lease
+    from optuna_tpu_torch.storages._grpc.suggest_service import ShedPolicy, SuggestService, ThinClientSampler
+    from optuna_tpu_torch.testing.fault_injection import FakeHubFleet
+
+    t_phase = time.perf_counter()
+    history = history_trials(SERVE_HISTORY)
+    factory = lambda: GPSampler(seed=0)  # noqa: E731
+    out: dict = {}
+
+    # (a) Width-1 twin: a lone ask is the exact per-trial sample_relative.
+    local = seeded_study(SERVE_HISTORY)
+    before = k1_count()
+    t0 = time.perf_counter()
+    local.optimize(hartmann20, n_trials=SERVE_TWIN_TRIALS)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    k1_local = k1_count() - before
+    service, mounted, ask = serve_stack(InMemoryStorage(), factory, ready_ahead=0, coalesce_window_s=0.0)
+    ot.create_study(storage=mounted, study_name="twin", sampler=RandomSampler()).add_trials(history)
+    sampler = ThinClientSampler(ask, seed=0)
+    served = ot.load_study(study_name="twin", storage=mounted, sampler=sampler)
+    before = k1_count()
+    t0 = time.perf_counter()
+    served.optimize(hartmann20, n_trials=SERVE_TWIN_TRIALS)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    k1_served = k1_count() - before
+    service.close()
+    check_served("phase 35(a)", served, SERVE_HISTORY, SERVE_TWIN_TRIALS, [sampler])
+    want = [t.params for t in local.get_trials(deepcopy=False)[SERVE_HISTORY:]]
+    got = [t.params for t in served.get_trials(deepcopy=False)[SERVE_HISTORY:]]
+    if got != want:
+        fail("phase 35(a): the width-1 thin client parts from the local GPSampler(seed=0) study")
+    if k1_local != SERVE_TWIN_TRIALS or k1_served != SERVE_TWIN_TRIALS:
+        fail(f"phase 35(a): K1 launched {k1_local} (local) and {k1_served} (served) times over "
+             f"{SERVE_TWIN_TRIALS} asks each, expected once an ask")
+    out["twin"] = {"local_ms": local_s / SERVE_TWIN_TRIALS * 1e3, "served_ms": served_s / SERVE_TWIN_TRIALS * 1e3,
+                   "ask_ms": [round(s * 1e3, 3) for s in ask.seconds], "k1": k1_local + k1_served}
+
+    # (b) Coalesced serving: eight client threads, two asks each.
+    n = SERVE_CLIENTS
+    telemetry.enable(telemetry.MetricsRegistry())
+    try:
+        service, mounted, ask = serve_stack(
+            InMemoryStorage(), factory, max_coalesce=n, ready_ahead=n, invalidate_after=n,
+            coalesce_window_s=SERVE_WINDOW_S,
+            shed_policy=ShedPolicy(degrade_depth=2 * n, independent_depth=4 * n, reject_depth=8 * n,
+                                   slo_source=lambda: ()),
+        )
+        ot.create_study(storage=mounted, study_name="coalesced", sampler=RandomSampler()).add_trials(history)
+        clients = [ThinClientSampler(ask, seed=k) for k in range(n)]
+        studies = [ot.load_study(study_name="coalesced", storage=mounted, sampler=c) for c in clients]
+        errors: list = []
+
+        def client(study):
+            try:
+                study.optimize(hartmann20, n_trials=1)
+            except BaseException as err:  # noqa: BLE001 -- reported by the main thread below
+                errors.append(err)
+
+        def ask_round() -> float:
+            """Every client asks (and tells) once, all at the same time."""
+            threads = [threading.Thread(target=client, args=(s,), name=f"serve-client-{k}")
+                       for k, s in enumerate(studies)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600.0)
+            torch.cuda.synchronize()
+            if errors or any(th.is_alive() for th in threads):
+                fail(f"phase 35(b): client threads failed or hung: {errors!r}")
+            return time.perf_counter() - t0
+
+        before = k1_count()
+        rounds_s = [ask_round() for _ in range(SERVE_ASKS)]
+        wall_s = sum(rounds_s)
+        snap, phases, n_timed = telemetry.snapshot(), telemetry.phase_totals(), len(ask.seconds)
+        # The busy share: one more round, the ready queue emptied first so that
+        # it misses and coalesces as the first did, under the profiler (apart,
+        # so that the profiler's cost stays out of the timed rounds).
+        service._handles[studies[0]._study_id].queue.refill([])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiled_s = ask_round()
+        service.close()  # joins the refill worker, so its last dispatch is counted
+        torch.cuda.synchronize()
+        k1_b = k1_count() - before
+        final, final_phases = telemetry.snapshot(), telemetry.phase_totals()
+    finally:
+        telemetry.disable()
+    t0 = time.perf_counter()
+    busy_ms, n_kernels = device_busy(prof)
+    readback_s = time.perf_counter() - t0
+    check_served("phase 35(b)", studies[0], SERVE_HISTORY, n * (SERVE_ASKS + 1), clients)
+    counters, gauges = snap["counters"], snap["gauges"]
+    dispatches = int(phases.get("serve.coalesce", {}).get("count", 0))
+    refills = int(counters.get("serve.ready_queue.refill", 0))
+    all_dispatches = int(final_phases.get("serve.coalesce", {}).get("count", 0))
+    all_refills = int(final["counters"].get("serve.ready_queue.refill", 0))
+    sheds = {k: v for k, v in final["counters"].items() if k.startswith("serve.shed.")}
+    width_max = int(gauges.get("serve.coalesce.width.max", 0))
+    if width_max < 2:
+        fail(f"phase 35(b): the widest coalesced dispatch was {width_max}, expected >= 2")
+    if sheds:
+        fail(f"phase 35(b): asks were shed: {sheds}")
+    if k1_b != all_dispatches + all_refills:
+        fail(f"phase 35(b): K1 launched {k1_b} times over {all_dispatches} coalesced dispatches and "
+             f"{all_refills} refills")
+    ask_ms = np.array(ask.seconds[:n_timed]) * 1e3
+    out["coalesced"] = {
+        "wall_s": wall_s, "ms_per_trial": wall_s / (n * SERVE_ASKS) * 1e3, "dispatches": dispatches,
+        "refills": refills, "width_max": width_max, "hits": int(counters.get("serve.ready_queue.hit", 0)),
+        "misses": int(counters.get("serve.ready_queue.miss", 0)), "p50_ms": float(np.percentile(ask_ms, 50)),
+        "p99_ms": float(np.percentile(ask_ms, 99)), "k1": k1_b, "busy_ms": busy_ms, "kernels": n_kernels,
+        "busy_share": busy_ms / (profiled_s * 1e3), "profiled_s": profiled_s, "readback_s": readback_s,
+        "round3": (all_dispatches - dispatches, all_refills - refills),
+        "coalesce_s": phases.get("serve.coalesce", {}).get("total_s", 0.0),
+        "refill_s": phases.get("serve.ready_queue", {}).get("total_s", 0.0),
+    }
+
+    # (c) Fleet re-home: two hubs over one sqlite file.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    fleet = None
+    telemetry.enable(telemetry.MetricsRegistry())
+    try:
+        storage = RDBStorage(f"sqlite:///{os.path.join(tmp, 'fleet.db')}")
+        names = ["hub-0", "hub-1"]
+        fleet = FakeHubFleet(storage, names, lambda name: SuggestService(
+            storage, factory, ready_ahead=0, coalesce_window_s=0.0, checkpoint_every=SERVE_CKPT_EVERY,
+            health_reporting=False))
+        ot.create_study(storage=fleet.mounted[names[0]], study_name="fleet", sampler=RandomSampler()).add_trials(history)
+        sid = storage.get_study_id_from_name("fleet")
+        owner = fleet.router.hub_for(sid)
+        survivor = next(h for h in names if h != owner)
+        thin = fleet.thin_client(seed=0)
+        study = ot.load_study(study_name="fleet", storage=fleet.mounted[owner], sampler=thin)
+        trial_s: list[float] = []
+
+        def run(count):
+            for _ in range(count):
+                t0 = time.perf_counter()
+                study.optimize(hartmann20, n_trials=1)
+                torch.cuda.synchronize()
+                trial_s.append(time.perf_counter() - t0)
+
+        before = k1_count()
+        run(SERVE_FLEET_TRIALS // 2)
+        fleet.drop_response(owner, "service_ask", 1)
+        run(SERVE_FLEET_TRIALS - SERVE_FLEET_TRIALS // 2)
+        k1_owner = k1_count() - before
+        replayed = int(telemetry.snapshot()["counters"].get("serve.fleet.ask_replayed", 0))
+        lease_before = read_lease(storage, sid)
+        fleet.kill(owner)
+        before = k1_count()
+        run(SERVE_AFTER_KILL)
+        k1_survivor = k1_count() - before
+        counters = telemetry.snapshot()["counters"]
+        lease = read_lease(storage, sid)
+        check_served("phase 35(c)", study, SERVE_HISTORY, SERVE_FLEET_TRIALS + SERVE_AFTER_KILL, [thin])
+        if replayed != 1 or k1_owner != SERVE_FLEET_TRIALS:
+            fail(f"phase 35(c): {replayed} replayed asks and {k1_owner} owner dispatches (K1) over "
+                 f"{SERVE_FLEET_TRIALS} trials with one dropped answer, expected 1 and {SERVE_FLEET_TRIALS}")
+        if (lease_before or {}).get("owner") != owner or lease is None or \
+                (lease["owner"], lease["epoch"]) != (survivor, lease_before["epoch"] + 1):
+            fail(f"phase 35(c): lease {lease_before} then {lease}, expected the epoch bumped to {survivor}")
+        if counters.get("checkpoint.warm_load", 0) != 1 or counters.get("serve.fleet.hub_rehome", 0) != 1:
+            fail(f"phase 35(c): warm_load {counters.get('checkpoint.warm_load', 0)}, hub_rehome "
+                 f"{counters.get('serve.fleet.hub_rehome', 0)}, expected 1 each")
+        if k1_survivor != SERVE_AFTER_KILL:
+            fail(f"phase 35(c): K1 launched {k1_survivor} times over the survivor's {SERVE_AFTER_KILL} asks")
+    finally:
+        telemetry.disable()
+        if fleet is not None:
+            fleet.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fleet"] = {
+        "trial_ms": [round(s * 1e3, 1) for s in trial_s], "cold_first_ms": trial_s[0] * 1e3,
+        "warm_first_ms": trial_s[SERVE_FLEET_TRIALS] * 1e3, "epochs": (lease_before["epoch"], lease["epoch"]),
+        "k1": k1_owner + k1_survivor, "writes": int(counters.get("checkpoint.write", 0)),
+    }
+    out["k1"] = out["twin"]["k1"] + k1_b + out["fleet"]["k1"]
+    out["s"] = time.perf_counter() - t_phase
+    c, f = out["coalesced"], out["fleet"]
+    print(
+        f"phase 35, config #2's GP served from the card (Hartmann-20D, {SERVE_HISTORY} seeded, SGPR m 256, "
+        f"handler-direct dispatcher): (a) width-1 twin of {SERVE_TWIN_TRIALS} trials identical to the local "
+        f"GPSampler(seed=0) study, {out['twin']['served_ms']:.1f} ms a served trial against {out['twin']['local_ms']:.1f} "
+        f"local (service_ask ms {out['twin']['ask_ms']}); (b) {n} clients x {SERVE_ASKS} asks in {c['wall_s']:.3f} s "
+        f"({c['ms_per_trial']:.1f} ms a served trial): {c['dispatches']} coalesced dispatches (width max "
+        f"{c['width_max']}, {c['coalesce_s']:.3f} s) and {c['refills']} refills ({c['refill_s']:.3f} s), ready queue "
+        f"{c['hits']} hits / {c['misses']} misses, service_ask p50 {c['p50_ms']:.2f} ms p99 {c['p99_ms']:.2f} ms, "
+        f"rounds {[round(x, 3) for x in rounds_s]} s; a third round under the profiler (queue emptied: "
+        f"{c['round3'][0]} coalesced dispatches, {c['round3'][1]} refills) {c['profiled_s']:.3f} s, device busy "
+        f"{c['busy_ms']:.1f} ms ({100 * c['busy_share']:.1f}%, {c['kernels']} device events, read back in "
+        f"{c['readback_s']:.2f} s), K1 {c['k1']}; (c) fleet of 2 over sqlite: one dropped answer replayed, lease "
+        f"epoch {f['epochs'][0]} -> {f['epochs'][1]}, warm_load 1, {f['writes']} ckpt:hub writes, first dispatch "
+        f"cold {f['cold_first_ms']:.1f} ms and warm after the re-home {f['warm_first_ms']:.1f} ms (ms a trial "
+        f"{f['trial_ms']}); K1 {out['k1']}; phase {out['s']:.1f} s"
+    )
+    return out
+
+
+# ------------------------------------------------ CPU twins in a helper process
+
+
+def hv_front() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 7's 5-objective front: 512 ``RandomState(0)`` uniform points."""
+    return np.random.RandomState(0).uniform(0.0, 1.0, size=(512, 5)), np.ones(5)
+
+
+def cpu_hypervolume() -> tuple:
+    """Phase 7's twin: the hypervolume with ``device="cpu"`` (the plain stack
+    loop), its seconds and stack iterations."""
+    from optuna_tpu_torch.hypervolume import compute_hypervolume
+    from optuna_tpu_torch.ops import wfg
+
+    front, ref = hv_front()
+    wfg.reset_stats()
+    t0 = time.perf_counter()
+    hv = compute_hypervolume(front, ref, device="cpu")
+    return hv, time.perf_counter() - t0, dict(wfg.STATS)
+
+
+def cpu_hssp() -> tuple:
+    """Phase 21's twin at M = 5: the greedy HSSP with ``device="cpu"`` and
+    its seconds. The helper has the CPU to itself, so the plain stack loop
+    batches all candidates in one lockstep chunk (its bits do not depend on
+    the chunk)."""
+    from optuna_tpu_torch.ops.hypervolume import solve_hssp_device
+    from optuna_tpu_torch.ops.kernels import wfg as stack
+
+    front = np.random.RandomState(0).uniform(0.0, 1.0, size=(HSSP_N, HSSP_M))
+    stack._PLAIN_ELEMENTS = 1 << 24
+    t0 = time.perf_counter()
+    picks = solve_hssp_device(front, np.ones(HSSP_M), HSSP_K, device="cpu")
+    return picks, time.perf_counter() - t0
+
+
+def cpu_terminator() -> dict:
+    """Phase 33's twins: ``RegretBoundEvaluator`` and ``EMMREvaluator`` with
+    ``device="cpu"`` over :func:`analysis_study`, value and seconds each."""
+    from optuna_tpu_torch.terminator import EMMREvaluator, RegretBoundEvaluator
+
+    study = analysis_study()
+    trials = study.get_trials(deepcopy=False)
+    out = {}
+    for cls in (RegretBoundEvaluator, EMMREvaluator):
+        t0 = time.perf_counter()
+        value = cls(device="cpu").evaluate(trials, study.direction)
+        out[cls.__name__] = (value, time.perf_counter() - t0)
+    return out
+
+
+def cpu_mo_parity() -> dict:
+    """Phase 28's twins: one LogEHVI ask with ``device="cpu"`` from
+    ``MO_PARITY_FROM`` seeded trials a route (:func:`first_proposal`)."""
+    return {
+        label: first_proposal(objective, dim, n_obj, MO_PARITY_FROM, "cpu")
+        for label, objective, dim, n_obj, _, _ in mo_routes()
+    }
+
+
+CPU_TWINS = (
+    ("hv", cpu_hypervolume), ("hssp", cpu_hssp), ("mo_parity", cpu_mo_parity), ("terminator", cpu_terminator),
+)
+
+
+def _run_cpu_twins(queue) -> None:
+    import optuna_tpu_torch
+
+    # The card phases' host work comes first. The thread count stays torch's
+    # default, as in the main process: the LogEHVI and terminator twins'
+    # results move with it (far inside their tolerances, but near ties part).
+    os.nice(10)
+    optuna_tpu_torch.logging.set_verbosity(optuna_tpu_torch.logging.WARNING)
+    for name, fn in CPU_TWINS:
+        try:
+            queue.put((name, True, fn()))
+        except Exception as err:  # reported to the phase that waits for it, which fails
+            queue.put((name, False, repr(err)))
+
+
+class CpuTwins:
+    """One helper process (``spawn``: it inherits no CUDA state, and its
+    twins run on the CPU only) computing :data:`CPU_TWINS` in order while
+    the card's phases run. :meth:`get` waits for a twin's result, and fails
+    if the helper failed it or died."""
+
+    def __init__(self) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        self._proc = ctx.Process(target=_run_cpu_twins, args=(self._queue,), daemon=True)
+        self._proc.start()
+        self._got: dict = {}
+
+    def get(self, name: str):
+        import queue
+
+        while name not in self._got:
+            try:
+                key, ok, value = self._queue.get(timeout=5.0)
+            except queue.Empty:
+                if not self._proc.is_alive():
+                    fail(f"the CPU twins' helper process ended (exit code {self._proc.exitcode}) before {name!r}")
+                continue
+            self._got[key] = (ok, value)
+        ok, value = self._got[name]
+        if not ok:
+            fail(f"CPU twin {name!r} raised {value}")
+        return value
+
+    def close(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(timeout=10.0)
+
+
 def main() -> None:
     try:
         import torch
@@ -4035,6 +4451,7 @@ def main() -> None:
     print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     gpu = gpu_line()
     device = torch.device("cuda", 0)
+    twins = CpuTwins()
     t_start = time.perf_counter()
 
     phase_build()
@@ -4064,7 +4481,7 @@ def main() -> None:
     nsga_s = phase_nsga()
     nsga = counts()
     reset()
-    hv_s = phase_hv()
+    hv_s = phase_hv(twins)
     hv = counts()
     t_scan = time.perf_counter()
     phase_scan_chunk(device)
@@ -4098,7 +4515,7 @@ def main() -> None:
     t_slice = time.perf_counter()
     reset()
     phase_slicing()
-    hssp = phase_hssp(wrappers["wfg_stack"])
+    hssp = phase_hssp(wrappers["wfg_stack"], twins)
     hssp_counts = counts()
     reset()
     nsga3 = phase_nsga3(wrappers["nds_rank"])
@@ -4117,7 +4534,7 @@ def main() -> None:
     chain = phase_chain(k1_count, exact_s, sparse_s)
     running = phase_running(k1_count)
     constrained = phase_constraints(k1_count)
-    mo_gp = phase_mo_gp(k1_count)
+    mo_gp = phase_mo_gp(k1_count, twins)
     gp_rest = counts()
     print(f"GP phases 25-28: {time.perf_counter() - t_gp:.1f} s, set-up and checks included")
     t_batch = time.perf_counter()
@@ -4136,13 +4553,20 @@ def main() -> None:
     print(f"resume phase 32: {time.perf_counter() - t_resume:.1f} s, set-up and checks included")
     t_analysis = time.perf_counter()
     reset()
-    analysis = phase_analysis(k1_count, wrappers["wfg_stack"])
+    analysis = phase_analysis(k1_count, wrappers["wfg_stack"], twins)
+    twins.close()
     analysis_counts = counts()
     print(f"analysis phase 33: {time.perf_counter() - t_analysis:.1f} s, set-up and checks included")
     reset()
     control = phase_autopilot(k1_count)
     control_counts = counts()
     print(f"observability and control phase 34: {control['s']:.1f} s, set-up and checks included")
+    reset()
+    serve = phase_serve(k1_count)
+    serve_counts = counts()
+    print(f"serve phase 35: {serve['s']:.1f} s, set-up and checks included")
+    if serve_counts["matern52_gram"] != serve["k1"] or any(v for k, v in serve_counts.items() if k != "matern52_gram"):
+        fail(f"phase 35 launched {serve_counts}, expected K1 {serve['k1']} and no other kernel")
     if control_counts["matern52_gram"] != control["k1"] or any(v for k, v in control_counts.items() if k != "matern52_gram"):
         fail(f"phase 34 launched {control_counts}, expected K1 {control['k1']} and no other kernel")
     want_analysis = dict.fromkeys(analysis_counts, 0)
@@ -4166,7 +4590,7 @@ def main() -> None:
     launches = {
         "matern52_gram": gp["matern52_gram"] + scan["matern52_gram"] + runtime["matern52_gram"]
         + gp_rest["matern52_gram"] + gp_batch_counts["matern52_gram"] + resume_counts["matern52_gram"]
-        + analysis_counts["matern52_gram"] + control_counts["matern52_gram"],
+        + analysis_counts["matern52_gram"] + control_counts["matern52_gram"] + serve_counts["matern52_gram"],
         "nds_rank": nsga["nds_rank"] + motpe["launches"] + runtime["nds_rank"] + nsga3_counts["nds_rank"]
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
@@ -4186,7 +4610,9 @@ def main() -> None:
         f"phase 32: K1 {resume['k1']} over the killed, resumed and twin scans; phase 33: K1 {analysis['k1']} = "
         f"terminator {analysis['terminator']['k1']} + GP study with the callback {analysis['callbacks']['k1']}, "
         f"K3 {analysis['k3']} over the hypervolume history's routed prefixes; phase 34: K1 {control['k1']} over the "
-        f"act run's 5 SGPR chunks and the twins' 4, swap-ins included)"
+        f"act run's 5 SGPR chunks and the twins' 4, swap-ins included; phase 35: K1 {serve['k1']} = twin "
+        f"{serve['twin']['k1']} + coalesced {serve['coalesced']['k1']} + fleet {serve['fleet']['k1']}, one a hub "
+        f"dispatch)"
     )
     for name, count in launches.items():
         if count < 1:
@@ -4202,7 +4628,7 @@ def main() -> None:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
     paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
-             batch_counts, gp_batch_counts, resume_counts, analysis_counts, control_counts)
+             batch_counts, gp_batch_counts, resume_counts, analysis_counts, control_counts, serve_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -4241,6 +4667,8 @@ def main() -> None:
         f"{analysis['terminator']['RegretBoundEvaluator']['cpu_s']:.3f}), "
         f"autopilot scan {control['per_chunk']['on']:.3f} s an SGPR chunk with every hook on, "
         f"{control['per_chunk']['off']:.3f} with every hook off (gp.densify {control['verdict']}), "
+        f"served GP {serve['coalesced']['ms_per_trial']:.1f} ms a trial at {SERVE_CLIENTS} clients (coalesce width "
+        f"max {serve['coalesced']['width_max']}), "
         f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))

@@ -22,9 +22,9 @@ finding                     action
 ``executor.quarantine_rate``  ``executor.tighten_regrowth`` — stretch the
                             probationary batch-regrowth streak
 ``service.slo_burn`` /      ``service.shed_earlier`` — halve the shed
-``service.backpressure``    thresholds of the suggestion hub (no target
-                            until the serving tier, ROADMAP A9:
-                            ``no_target``)
+``service.backpressure``    thresholds of the suggestion hub (the
+                            ``SuggestService`` noted last) and double its
+                            ``ready_ahead``
 ``gp.sparse_degraded``      ``gp.densify`` — double the scan loop's (or the
                             GP sampler's) inducing capacity, or fall back to
                             the exact posterior once at the cap

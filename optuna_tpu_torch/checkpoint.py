@@ -69,7 +69,8 @@ RING_SLOTS = 2
 #: The checkpoint event vocabulary, counted as ``checkpoint.<event>``; every
 #: event has a preemption scenario in
 #: ``testing/fault_injection.py::CHECKPOINT_CHAOS_MATRIX``. ``warm_load`` is
-#: the serve tier's (ROADMAP A9) and is counted by nothing in the port yet.
+#: the serve tier's: a re-homing fleet hub counts it
+#: (``storages/_grpc/fleet.py::FleetHub._warm_load``).
 CHECKPOINT_EVENTS: dict[str, str] = {
     "write": "a loop boundary persisted a CRC-framed state blob into the ckpt: ring",
     "write_error": "a best-effort checkpoint write failed; the loop continued without it",

@@ -30,8 +30,8 @@ much / how often"; this module answers "what happened, in what order, to
   (:func:`chrome_trace`, ``Study.trace_snapshot()``, the
   ``optuna-tpu-torch trace`` CLI, and ``/trace.json`` from
   ``telemetry.serve_metrics``); (2) cross-process propagation
-  (:func:`rpc_span` / :func:`rpc_context`, for the gRPC tier of ROADMAP
-  A9); (3) postmortems: :func:`postmortem` flushes the ring's tail as
+  (:func:`rpc_span` / :func:`rpc_context`, which the gRPC tier's client
+  and server stitch); (3) postmortems: :func:`postmortem` flushes the ring's tail as
   bounded JSON when a batch fails terminally, a watchdog fires, or a
   ``GuardedSampler`` first degrades.
 

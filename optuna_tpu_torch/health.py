@@ -25,8 +25,8 @@ module is the study-scoped sibling of ``Study.telemetry_snapshot()``:
   values (check id, severity, evidence, remediation hint). The check-id
   vocabulary :data:`HEALTH_CHECKS` is the reference's, each with a
   scenario in ``testing/fault_injection.py::HEALTH_CHECK_CHAOS_MATRIX``.
-  The serve-tier checks are pure functions of the fleet view and run here
-  although the serving tier itself comes with ROADMAP A9.
+  The serve-tier checks are pure functions of the fleet view; the hubs of
+  :mod:`optuna_tpu_torch.storages._grpc` publish what they read.
 
 Surfaces: ``Study.health_report()``, the ``optuna-tpu-torch doctor`` CLI
 (text/json, ``--endpoint`` like ``metrics``/``trace``), ``/health.json``

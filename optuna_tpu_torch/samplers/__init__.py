@@ -23,6 +23,7 @@ _LAZY = {
     "PartialFixedSampler": "optuna_tpu_torch.samplers._partial_fixed",
     "QMCSampler": "optuna_tpu_torch.samplers._qmc",
     "TPESampler": "optuna_tpu_torch.samplers._tpe.sampler",
+    "ThinClientSampler": "optuna_tpu_torch.storages._grpc.suggest_service",
 }
 
 __all__ = ["BaseSampler", "LazyRandomState", "RandomSampler", *sorted(_LAZY)]

@@ -24,9 +24,9 @@ rates (port of ``optuna_tpu/slo.py``, standard library only).
 Consumers: ``optuna_tpu_slo_*`` gauges appended to
 ``telemetry.render_prometheus()``, ``/slo.json`` beside ``/metrics``, the
 ``optuna-tpu-torch slo`` CLI and the study doctor's ``service.slo_burn``
-check (burn state rides health snapshots over the fleet channel). The
-suggestion service's shed ladder, the reference's other consumer, comes
-with the serving tier (ROADMAP A9).
+check (burn state rides health snapshots over the fleet channel), and the
+suggestion service's shed ladder and fleet shed-forward
+(:mod:`optuna_tpu_torch.storages._grpc`).
 
 **Off by default**; while disabled the phase sink is unhooked, so
 ``telemetry.span`` keeps returning its shared null singleton and a study

@@ -5,8 +5,9 @@
 The in-memory backend, the relational backend over ``sqlite3`` (with the
 MySQL and PostgreSQL dialects over any DB-API driver), the journal backends
 (file and Redis), and the storage wrappers: the retrying wrapper, the read
-cache, the heartbeat machinery and the failed-trial retry callbacks. The
-gRPC proxy waits for ROADMAP A9, so a ``grpc://`` URL raises.
+cache, the heartbeat machinery, the failed-trial retry callbacks, and the
+gRPC storage proxy (``grpc://host:port``; its client and server import
+``grpc`` only when used).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "BaseHeartbeat",
     "BaseJournalLogStorage",
     "BaseStorage",
+    "GrpcStorageProxy",
     "InMemoryStorage",
     "JournalFileOpenLock",
     "JournalFileStorage",
@@ -46,6 +48,7 @@ __all__ = [
     "_CachedStorage",
     "fail_stale_trials",
     "get_storage",
+    "run_grpc_proxy_server",
 ]
 
 _LAZY = {
@@ -59,6 +62,8 @@ _LAZY = {
     "RDBStorage": ("optuna_tpu_torch.storages._rdb.storage", "RDBStorage"),
     "JournalStorage": ("optuna_tpu_torch.storages.journal", "JournalStorage"),
     "JournalFileBackend": ("optuna_tpu_torch.storages.journal", "JournalFileBackend"),
+    "GrpcStorageProxy": ("optuna_tpu_torch.storages._grpc.client", "GrpcStorageProxy"),
+    "run_grpc_proxy_server": ("optuna_tpu_torch.storages._grpc.server", "run_grpc_proxy_server"),
 }
 
 
@@ -94,9 +99,14 @@ def get_storage(storage: Union[None, str, BaseStorage]) -> BaseStorage:
             path = storage[len("journal://"):] if storage.startswith("journal://") else storage
             return JournalStorage(JournalFileBackend(path))
         if storage.startswith("grpc://"):
-            raise NotImplementedError(
-                f"Storage URL {storage!r}: the gRPC storage proxy is not ported yet "
-                "(ROADMAP.md item A9)."
+            from optuna_tpu_torch.storages._grpc.client import GrpcStorageProxy
+
+            hostport = storage[len("grpc://"):]
+            host, _, port = hostport.partition(":")
+            # Cached wrap: sampler history reads poll the proxy incrementally
+            # (_read_trials_partial) instead of shipping the full trial list.
+            return _CachedStorage(
+                GrpcStorageProxy(host=host or "localhost", port=int(port or 13000))
             )
         raise ValueError(f"Unrecognized storage URL: {storage!r}")
     if isinstance(storage, BaseStorage):

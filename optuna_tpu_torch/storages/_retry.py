@@ -19,8 +19,9 @@ layer shares:
   injectors raise for retry-safe faults.
 
 The journal file locks reuse the same jittered-backoff schedule for lock
-acquisition. (In the reference the gRPC proxy uses :class:`RetryPolicy`
-too; the proxy is ROADMAP A9.)
+acquisition, and the gRPC proxy
+(:class:`~optuna_tpu_torch.storages._grpc.client.GrpcStorageProxy`) replays
+its transport failures under a :class:`RetryPolicy` too.
 """
 
 from __future__ import annotations

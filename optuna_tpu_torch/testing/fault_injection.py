@@ -40,8 +40,16 @@
   :class:`SLOChaosPlan` with their ``*_plan()`` constructors, and
   :func:`plant_dead_worker`, the stale snapshot a killed worker leaves.
 
-The pod, hub-fleet and lease chaos of the reference, and the checkpoint
-matrix's ``warm_load`` row (a hub re-home), wait for ROADMAP A8a and A9.
+* Serve-tier chaos (:mod:`optuna_tpu_torch.storages._grpc` is the layer
+  under test): :data:`SHED_CHAOS_POLICIES`, :data:`HUB_CHAOS_MATRIX` and
+  :data:`LEASE_CHAOS_MATRIX` with the plans :class:`ServiceChaosPlan`,
+  :class:`HubChaosPlan` and :class:`LeaseChaosPlan`; :func:`mount_dispatch`,
+  one storage and service behind the server's request dispatcher (no
+  ``grpc`` needed), with :func:`thin_client_ask` over it; :class:`FakeHubFleet`,
+  N fleet hubs over one storage mounted so, and :class:`SocketHubFleet`,
+  its real-socket twin.
+
+The pod chaos of the reference waits for ROADMAP A8a.
 
 Typical chaos test::
 
@@ -555,12 +563,215 @@ FALLBACK_CHAOS_POLICIES: dict[str, str] = {
 }
 
 
+# ---------------------------------------------------- suggestion-service chaos
+
+
+# Deliberately a hand-written literal (not an import of ``SHED_POLICIES``):
+# the tests hold the two equal (and to the reference's), so a shed rung
+# without an overload scenario that forces it fails them, because an
+# untested rung drops asks under exactly the load that makes the drop
+# hardest to debug.
+SHED_CHAOS_POLICIES: dict[str, str] = {
+    "stale_queue": "invalidate the ready queue, then overload past the degrade depth; the "
+    "stale proposals are served and counted, and the trials still complete",
+    "independent": "overload past the independent depth with an empty queue; clients get "
+    "empty relative proposals and converge via local independent sampling",
+    "reject": "overload past the reject depth; the response carries RESOURCE_EXHAUSTED + "
+    "retry-after, clients back off and converge, every shed is counted",
+}
+
+
+@dataclass(frozen=True)
+class ServiceChaosPlan:
+    """One deterministic suggestion-service chaos scenario: slow-tell thin
+    clients, a poison server-resident sampler (raise + NaN proposals via
+    :class:`FaultySampler` under ``GuardedSampler``), and a forced overload
+    burst — all against ONE study — plus the exact outcome the acceptance
+    test asserts (``tests/test_torch_serve_chaos.py``): server-side degrades
+    carry ``sampler_fallback:`` attrs visible to clients, every shed is
+    counted per rung exactly, shed responses carry retry-after and clients
+    converge, zero trials stay RUNNING after drain, and the fault-free twin
+    (ask-ahead off, width-1 asks) is bit-identical to a local-sampler study
+    on the same seed.
+
+    The burst is made deterministic by forcing the policy, not by racing
+    threads: ``burst_asks`` sequential asks run under a ``reject_depth=0``
+    policy (every ask sheds exactly once; clients are configured with zero
+    shed retries so counters equal the plan), then the policy is restored
+    and the same clients converge.
+    """
+
+    n_clients: int = 4
+    n_trials: int = 24
+    n_startup_trials: int = 4
+    seed: int = 7
+    slow_tell_s: float = 0.01
+    # FaultySampler schedule over the server-resident sampler's relative
+    # suggests: one raise + two NaN proposals — each degrades server-side.
+    sampler_raise_at: tuple[int, ...] = (1,)
+    sampler_nan_at: tuple[int, ...] = (2, 3)
+    burst_asks: int = 5
+    stale_burst_asks: int = 2
+    independent_burst_asks: int = 3
+
+    @property
+    def expected_sheds(self) -> dict[str, int]:
+        return {
+            "reject": self.burst_asks,
+            "stale_queue": self.stale_burst_asks,
+            "independent": self.independent_burst_asks,
+        }
+
+    @property
+    def expected_fallbacks(self) -> int:
+        return len(self.sampler_raise_at) + len(self.sampler_nan_at)
+
+
+def service_chaos_plan() -> ServiceChaosPlan:
+    """The default :class:`ServiceChaosPlan` the chaos suite runs — four
+    slow-tell clients, three server-side sampler faults, a five-ask reject
+    burst plus forced stale/independent rungs."""
+    return ServiceChaosPlan()
+
+
+# ------------------------------------------------------------ hub-fleet chaos
+
+
+# Chaos matrix for the hub fleet's routing events: every fault-tolerance
+# decision the fleet layer can take (``storages/_grpc/fleet.py::
+# FLEET_EVENTS``) maps to the hub-fault scenario ``tests/test_torch_serve_chaos.py``
+# must prove forces it. Deliberately a hand-written literal (not an import of
+# ``fleet.FLEET_EVENTS``): the tests hold the two equal, so a failover
+# event without a hub-kill scenario that forces it fails them, because an
+# unexercised failover path loses its first real in-flight ask during
+# exactly the hub death it was built for.
+HUB_CHAOS_MATRIX: dict[str, str] = {
+    "hub_dead": "SIGKILL one of four hubs mid-burst (FakeHubFleet.kill leaves the stale "
+    "-serve snapshot a real SIGKILL would); peers declare it dead exactly once and the "
+    "doctor reports service.hub_dead naming the hub",
+    "hub_rehome": "after the kill, asks for the dead hub's studies land on the ring "
+    "successor, which adopts the published epoch watermark and rebuilds serve state from "
+    "the shared journal",
+    "ask_forward": "mis-route an ask at a non-owner hub; it is forwarded to the owner and "
+    "answered (never rejected), with the cross-hub flow arrow recorded at both ends",
+    "ask_replayed": "drop the response of a committed ask (committed-but-unacked), the "
+    "client redials the next replica with the same op token; the successor replays the "
+    "shared record — the trial's params are written exactly once",
+    "shed_forward": "overload one hub into its reject rung while a peer idles; the ask is "
+    "forwarded to the least-burning peer and answered before any client sees "
+    "RESOURCE_EXHAUSTED; a fleet-wide burst still walks the client shed ladder",
+}
+
+
+@dataclass(frozen=True)
+class HubChaosPlan:
+    """One deterministic hub-fleet chaos scenario: ``n_hubs`` in-process
+    fleet members (:class:`FakeHubFleet`) over ONE shared storage, a
+    client burst, and a SIGKILL of one hub mid-burst — plus the exact
+    outcome the acceptance test asserts (``tests/test_torch_serve_chaos.py``):
+    zero lost asks (every client ask is answered), every in-flight ask of
+    the dead hub is answered exactly once by a successor (op-token +
+    shared replay record dedupe across the failover — the
+    committed-but-unacked drops in ``drop_responses`` are the hard case),
+    every healthy trial completes exactly once with zero RUNNING after the
+    drain, the doctor reports ``service.hub_dead`` naming exactly the
+    killed hub, and the fault-free fleet-of-1 twin is bit-identical to the
+    single-hub service on the same seed.
+    """
+
+    n_hubs: int = 4
+    n_clients: int = 4
+    n_trials: int = 24
+    n_startup_trials: int = 4
+    seed: int = 7
+    #: Trial count (per study) already served when the kill strikes — the
+    #: burst is mid-flight, not cold or drained.
+    kill_after_trials: int = 6
+    #: Committed-but-unacked asks: the hub answers (and replicates) the ask,
+    #: then the transport "dies" before the response reaches the client.
+    #: The client's redial with the same token must hit the replay record.
+    drop_responses: int = 2
+
+    @property
+    def killed_hub_index(self) -> int:
+        """The hub to kill: index 0 of the fleet's hub list (the name is
+        the fleet's choice; killing by index keeps the plan fleet-agnostic)."""
+        return 0
+
+
+def hub_chaos_plan() -> HubChaosPlan:
+    """The default :class:`HubChaosPlan` the chaos suite runs — kill one of
+    four hubs after six trials, with two committed-but-unacked drops."""
+    return HubChaosPlan()
+
+
+# Chaos matrix for the lease/fence layer's ownership transitions: every
+# lease event the fencing layer can record (``storages/_grpc/fleet.py::
+# LEASE_EVENTS``) maps to the gray-failure scenario
+# ``tests/test_torch_serve_chaos.py`` must prove forces it. Deliberately a
+# hand-written literal (not an import of ``fleet.LEASE_EVENTS``): the tests
+# hold the two equal, so a lease transition without a partition scenario
+# that forces it fails them, because an unexercised fence admits its first
+# double-applied zombie write during exactly the partition it was built for.
+LEASE_CHAOS_MATRIX: dict[str, str] = {
+    "acquire": "serve the first ask of a fresh study on its ring-preferred hub; the "
+    "lease:study: record lands with epoch 1 and that hub as owner, and the fault-free "
+    "solo twin writes no lease attrs at all",
+    "renew": "keep serving past the renewal cadence (ttl/2, injectable clock); the owner "
+    "re-asserts the record in place — same epoch, refreshed renewed_unix, no history entry",
+    "takeover": "partition the owning hub mid-burst (FakeHubFleet.kill); the ring "
+    "successor re-homes, bumps the epoch, and on heal the returning primary bumps it "
+    "again to reclaim (failback) — both transitions land in the bounded lease history",
+    "demote": "let the partitioned owner keep serving behind the partition; its first "
+    "fenced write (or renewal check) reveals the successor's higher epoch and it stops "
+    "answering locally, draining parked asks with a redial-to-successor verdict",
+    "fenced_write": "drive tells through the zombie so its checkpoint/replay/watermark "
+    "writes carry the stale epoch; the fence rejects every one with StaleLeaseError and "
+    "fleet.fenced_write counts them exactly — zero reach the shared journal",
+}
+
+
+@dataclass(frozen=True)
+class LeaseChaosPlan:
+    """One deterministic lease-fencing chaos scenario: a fleet over ONE
+    shared journal storage, a client burst, an asymmetric partition of the
+    owning hub mid-burst (killed for RPCs, alive in-process — the zombie),
+    tells pushed through the zombie's still-mounted storage, then a heal
+    and failback — plus the exact outcome the acceptance test asserts
+    (``tests/test_torch_serve_chaos.py``): every zombie serve-state write is
+    fenced and counted (``fleet.fenced_write`` equals the rejection count
+    exactly), zero double-applied tells, zero lost parked asks (drained
+    with redial verdicts, never aborted), the healed primary reclaims the
+    lease with a fresh epoch, and the best value is bit-identical to the
+    fault-free twin — all under the armed lock sanitizer.
+
+    ``lease_check_ttl_s`` is 0 so every fence check reads through to
+    storage: the test is deterministic, not cache-timing dependent.
+    """
+
+    n_hubs: int = 2
+    n_trials: int = 16
+    seed: int = 13
+    #: Trials served before the partition strikes — mid-burst by design.
+    partition_after_trials: int = 5
+    #: Tells pushed through the zombie while partitioned; each drives a
+    #: checkpoint write (checkpoint_every=1) the fence must reject.
+    zombie_tells: int = 3
+    lease_check_ttl_s: float = 0.0
+
+
+def lease_chaos_plan() -> LeaseChaosPlan:
+    """The default :class:`LeaseChaosPlan` the chaos suite runs — a
+    two-hub fleet, partition after five trials, three zombie tells."""
+    return LeaseChaosPlan()
+
+
 # -------------------------------------------------------- preemption chaos
 
 
-#: The preemption scenario for every checkpoint event a loop counts
-#: (``checkpoint.CHECKPOINT_EVENTS`` less ``warm_load``, the serve tier's
-#: hub re-home, which comes with ROADMAP A9).
+#: The preemption scenario for every checkpoint event
+#: (``checkpoint.CHECKPOINT_EVENTS``): the loops' six and the serve tier's
+#: hub re-home (``warm_load``).
 CHECKPOINT_CHAOS_MATRIX: dict[str, str] = {
     "write": "run a scan study over a journal storage; every chunk sync (and the startup "
     "sync) leaves a CRC-framed blob in the ckpt: ring and bumps the write counter",
@@ -575,6 +786,9 @@ CHECKPOINT_CHAOS_MATRIX: dict[str, str] = {
     "than one write interval; the resume skips it as stale and recomputes",
     "fallback": "garble every ring slot; the resume counts the fallback, recomputes the "
     "carry from COMPLETE history, and still finishes the exact remaining budget",
+    "warm_load": "kill a FakeHubFleet hub after its sampler fitted; the ring successor's "
+    "adopt warm-loads the dead hub's exported sampler state and answers the next ask "
+    "without a cold fit",
 }
 
 
@@ -618,6 +832,408 @@ def checkpoint_chaos_plan() -> CheckpointChaosPlan:
     """The default :class:`CheckpointChaosPlan`: kill a 96-trial scan study
     44 tells in (mid-chunk), resume, and compare to the uninterrupted twin."""
     return CheckpointChaosPlan()
+
+
+def mount_dispatch(
+    storage: BaseStorage,
+    service: Any = None,
+    *,
+    before: Callable[[str], None] | None = None,
+    after: Callable[[str], None] | None = None,
+) -> tuple[BaseStorage, Callable[..., Any]]:
+    """Mount ``storage`` (wrapped by the suggestion ``service`` when one is
+    given: a ``SuggestService`` or a ``FleetHub``) behind the server's
+    grpc-free request dispatcher (``server._make_dispatch``: wire codec, op
+    tokens, storage or service dispatch), with no socket. Returns ``(mounted
+    storage, rpc(method, *args, **kwargs))``; an error answer raises its
+    decoded exception. ``before(method)`` runs before the request is
+    dispatched, ``after(method)`` once it was answered and before the answer
+    is decoded (:class:`FakeHubFleet`'s kill and dropped response)."""
+    from optuna_tpu_torch.storages._grpc import _service as wire
+    from optuna_tpu_torch.storages._grpc.server import _make_dispatch
+
+    mounted = service.wrap_storage(storage) if service is not None else storage
+    dispatch = _make_dispatch(mounted, service)
+
+    def rpc(method: str, *args: Any, **kwargs: Any) -> Any:
+        if before is not None:
+            before(method)
+        response = dispatch(wire.encode_request(method, args, kwargs))
+        if after is not None:
+            after(method)
+        ok, payload = wire.decode_response(response)
+        if not ok:
+            raise payload
+        return payload
+
+    return mounted, rpc
+
+
+def thin_client_ask(rpc: Callable[..., Any]) -> Callable[[int, int, int, str], dict]:
+    """A ``ThinClientSampler`` ask callable over ``rpc`` (a
+    :func:`mount_dispatch` rpc): the op token rides the wire as a thin
+    client's gRPC ask sends it."""
+    from optuna_tpu_torch.storages._grpc._service import OP_TOKEN_KEY
+
+    def ask(study_id: int, trial_id: int, number: int, token: str) -> dict:
+        return rpc("service_ask", study_id, trial_id, number, **{OP_TOKEN_KEY: token})
+
+    return ask
+
+
+class FakeHubFleet:
+    """N in-process fleet hubs over ONE shared storage, without sockets:
+    each hub is a real ``SuggestService`` wrapped in a real
+    :class:`~optuna_tpu_torch.storages._grpc.fleet.FleetHub`, mounted behind the
+    server's request dispatcher (``server._make_dispatch`` — op-token dedup,
+    wire encode/decode, suggest dispatch all live; the reference mounts the
+    gRPC handler around the same body, which needs ``grpc``), with hub-to-hub
+    peer calls routed back through the same dispatchers so a kill severs
+    forwarding too. Nothing here imports ``grpc``.
+
+    Chaos controls:
+
+    * :meth:`kill` — SIGKILL stand-in: every subsequent RPC to the hub
+      raises :class:`~optuna_tpu_torch.storages._grpc.fleet.HubUnavailableError`,
+      and the hub's ``<name>-serve`` health snapshots are rewritten
+      ``age_s`` into the past (exactly the stale residue a real SIGKILL
+      leaves — the process stops refreshing; nothing cleans up).
+    * :meth:`heal` — the partition heals: RPCs flow again and a fresh
+      snapshot is republished (the hub was alive behind the partition).
+    * :meth:`drop_response` — committed-but-unacked: the hub executes the
+      next ``count`` calls of ``method`` normally (writes commit, the
+      replay record lands) but the response is dropped on the floor and
+      the caller sees ``HubUnavailableError`` — the redial-with-same-token
+      dedupe path's hard case.
+
+    ``clock`` (monotonic: liveness and lease-renewal cadences) and ``now``
+    (unix: lease expiry, snapshot ages) reach every hub, so a test moves
+    the fleet's time instead of sleeping.
+
+    ``client_asks()`` hands a :class:`fleet.FleetClient` the per-hub ask
+    closures (op token + ``fleet_redial`` riding the wire exactly as the
+    thin client sends them); :meth:`thin_client` builds the full
+    ``ThinClientSampler`` on top.
+    """
+
+    def __init__(
+        self,
+        storage: BaseStorage,
+        hub_names: Sequence[str],
+        service_factory: Callable[[str], Any],
+        *,
+        replicas: int = 64,
+        liveness_ttl_s: float = 0.0,
+        lease_ttl_s: float | None = None,
+        lease_check_ttl_s: float = 1.0,
+        clock: Callable[[], float] = time.monotonic,
+        now: Callable[[], float] = time.time,
+    ) -> None:
+        from optuna_tpu_torch.storages._grpc import _service as wire
+        from optuna_tpu_torch.storages._grpc import fleet as fleet_mod
+
+        self._wire = wire
+        self._fleet_mod = fleet_mod
+        self.storage = storage
+        self.router = fleet_mod.FleetRouter(hub_names, replicas=replicas)
+        self.hubs: dict[str, Any] = {}
+        self.mounted: dict[str, BaseStorage] = {}
+        self._rpc: dict[str, Callable[..., Any]] = {}
+        self._killed: set[str] = set()
+        self._drops: dict[tuple[str, str], int] = {}
+        self._lock = threading.Lock()
+        self._now = now
+        if lease_ttl_s is None:
+            lease_ttl_s = fleet_mod.DEFAULT_LEASE_TTL_S
+        for name in hub_names:
+            service = service_factory(name)
+            hub = fleet_mod.FleetHub(
+                name,
+                service,
+                self.router,
+                storage,
+                liveness_ttl_s=liveness_ttl_s,
+                lease_ttl_s=lease_ttl_s,
+                lease_check_ttl_s=lease_check_ttl_s,
+                clock=clock,
+                now=now,
+            )
+            mounted, rpc = mount_dispatch(
+                storage,
+                hub,
+                before=lambda _method, _name=name: self._check_alive(_name),
+                after=lambda method, _name=name: self._maybe_drop(_name, method),
+            )
+            self.hubs[name] = hub
+            self.mounted[name] = mounted
+            self._rpc[name] = rpc
+        for name, hub in self.hubs.items():
+            for peer_name in hub_names:
+                if peer_name != name:
+                    hub.set_peer(peer_name, _FleetPeerStub(self, peer_name))
+
+    # ------------------------------------------------------------- chaos taps
+
+    def _check_alive(self, name: str) -> None:
+        with self._lock:
+            killed = name in self._killed
+        if killed:
+            from optuna_tpu_torch.storages._grpc.fleet import HubUnavailableError
+
+            raise HubUnavailableError(f"fleet hub {name!r} is dead (injected kill).")
+
+    def _maybe_drop(self, name: str, method: str) -> None:
+        with self._lock:
+            left = self._drops.get((name, method), 0)
+            if left <= 0:
+                return
+            self._drops[(name, method)] = left - 1
+        from optuna_tpu_torch.storages._grpc.fleet import HubUnavailableError
+
+        raise HubUnavailableError(
+            f"response from hub {name!r} dropped (committed-but-unacked {method})."
+        )
+
+    def kill(self, name: str, *, age_s: float = 3600.0) -> None:
+        """SIGKILL stand-in: sever the hub's RPCs and leave its ``-serve``
+        snapshots ``age_s`` stale (a dead process stops refreshing; the
+        stale record IS the death signal the liveness check reads)."""
+        from optuna_tpu_torch import health
+
+        with self._lock:
+            self._killed.add(name)
+        worker_id = name + health.HUB_WORKER_ID_SUFFIX
+        attr_key = health.WORKER_ATTR_PREFIX + worker_id
+        for frozen in self.storage.get_all_studies():
+            study_id = frozen._study_id
+            snap = dict(
+                health.worker_snapshots(self.storage, study_id).get(worker_id)
+                or {"worker": worker_id, "pid": 0, "seq": 1, "counters": {},
+                    "gauges": {}, "histograms": {}, "jit": {},
+                    "interval_s": health.DEFAULT_INTERVAL_S}
+            )
+            snap["last_seen_unix"] = self._now() - age_s
+            snap.pop("final", None)
+            self.storage.set_study_system_attr(study_id, attr_key, snap)
+        self.invalidate_liveness()
+
+    def heal(self, name: str) -> None:
+        """The partition heals: RPCs to the hub flow again and a fresh
+        snapshot is republished for every study (the hub was alive the
+        whole time — only unreachable)."""
+        from optuna_tpu_torch import health
+
+        with self._lock:
+            self._killed.discard(name)
+        worker_id = name + health.HUB_WORKER_ID_SUFFIX
+        attr_key = health.WORKER_ATTR_PREFIX + worker_id
+        for frozen in self.storage.get_all_studies():
+            study_id = frozen._study_id
+            snap = health.worker_snapshots(self.storage, study_id).get(worker_id)
+            if snap is None:
+                continue
+            snap = dict(snap)
+            snap["last_seen_unix"] = self._now()
+            self.storage.set_study_system_attr(study_id, attr_key, snap)
+        self.invalidate_liveness()
+
+    def drop_response(self, name: str, method: str = "service_ask", count: int = 1) -> None:
+        """Schedule the next ``count`` successful ``method`` calls on hub
+        ``name`` to commit server-side but lose their response."""
+        with self._lock:
+            self._drops[(name, method)] = self._drops.get((name, method), 0) + count
+
+    def invalidate_liveness(self) -> None:
+        for hub in self.hubs.values():
+            hub.invalidate_liveness()
+
+    # --------------------------------------------------------------- clients
+
+    def rpc(self, name: str, method: str, *args: Any, **kwargs: Any) -> Any:
+        return self._rpc[name](method, *args, **kwargs)
+
+    def client_asks(self) -> dict[str, Callable[..., dict]]:
+        """Per-hub ask closures for :class:`fleet.FleetClient`: op token and
+        ``fleet_redial`` ride the wire exactly as a thin client sends them."""
+        wire = self._wire
+
+        def make(name):
+            def ask(study_id, trial_id, number, token, redial):
+                return self.rpc(
+                    name, "service_ask", study_id, trial_id, number,
+                    fleet_redial=redial, **{wire.OP_TOKEN_KEY: token},
+                )
+
+            return ask
+
+        return {name: make(name) for name in self.router.hubs}
+
+    def fleet_client(self, **kwargs: Any) -> Any:
+        """A :class:`fleet.FleetClient` over this fleet's handlers. Default
+        backoff sleeps are suppressed (tests must not wait out real jitter)."""
+        policy = kwargs.pop("retry_policy", None)
+        if policy is None:
+            from optuna_tpu_torch.storages._retry import RetryPolicy
+
+            policy = RetryPolicy(
+                max_attempts=2 * len(self.router.hubs) + 1, sleep=lambda _s: None
+            )
+        return self._fleet_mod.FleetClient(
+            self.router, self.client_asks(), retry_policy=policy, **kwargs
+        )
+
+    def thin_client(self, **kwargs: Any) -> Any:
+        """A ``ThinClientSampler`` whose asks walk the fleet (routing,
+        redial, replay) instead of a single hub."""
+        from optuna_tpu_torch.storages._grpc.suggest_service import ThinClientSampler
+
+        return ThinClientSampler(self.fleet_client().ask, **kwargs)
+
+    def close(self) -> None:
+        for hub in self.hubs.values():
+            try:
+                hub.close()
+            except Exception:  # teardown best-effort: one hub's close must not strand the rest
+                pass
+
+
+class _FleetPeerStub:
+    """Peer protocol routed back through the fleet's own handlers: a
+    forwarded ask crosses the same wire/op-token path a socket peer would,
+    and a killed hub severs forwarding exactly like a dead socket."""
+
+    def __init__(self, fleet: FakeHubFleet, name: str) -> None:
+        self._fleet = fleet
+        self.name = name
+
+    def service_forwarded_ask(self, *args: Any, **kwargs: Any) -> dict:
+        return self._fleet.rpc(self.name, "service_forwarded_ask", *args, **kwargs)
+
+    def service_burn_verdict(self) -> dict:
+        return self._fleet.rpc(self.name, "service_burn_verdict")
+
+
+class SocketHubFleet(FakeHubFleet):
+    """:class:`FakeHubFleet`'s real-socket twin: the same N fleet hubs over
+    ONE shared storage, but each hub listens on its own loopback gRPC
+    server and every client and peer RPC crosses a real channel — wire
+    codec, HTTP/2 framing, kernel TCP, and server thread-pool dispatch all
+    paid for. ``mounted[name]`` is a
+    :class:`~optuna_tpu_torch.storages._grpc.client.GrpcStorageProxy`, so study
+    create/load/tell traffic rides the wire too, exactly like a remote
+    worker's.
+
+    The chaos taps (:meth:`kill` / :meth:`heal` / :meth:`drop_response`)
+    sever the CLIENT side of the channel, which is what a network partition
+    does: the server keeps running behind the cut and its lease keeps
+    aging — the gray-failure geometry the lease fencing exists for.
+
+    Used by netchaos tests that want faults on a real channel rather than
+    the handler-direct seam, and wherever the serve numbers need the real
+    channel's latency."""
+
+    def __init__(
+        self,
+        storage: BaseStorage,
+        hub_names: Sequence[str],
+        service_factory: Callable[[str], Any],
+        *,
+        replicas: int = 64,
+        liveness_ttl_s: float = 0.0,
+        lease_ttl_s: float | None = None,
+        lease_check_ttl_s: float = 1.0,
+        host: str = "localhost",
+    ) -> None:
+        import grpc
+
+        from optuna_tpu_torch.storages._grpc import _service as wire
+        from optuna_tpu_torch.storages._grpc import fleet as fleet_mod
+        from optuna_tpu_torch.storages._grpc.client import GrpcStorageProxy
+        from optuna_tpu_torch.storages._grpc.server import make_grpc_server
+        from optuna_tpu_torch.testing.storages import _find_free_port
+
+        self._wire = wire
+        self._fleet_mod = fleet_mod
+        self.storage = storage
+        self.router = fleet_mod.FleetRouter(hub_names, replicas=replicas)
+        self.hubs: dict[str, Any] = {}
+        self.mounted: dict[str, BaseStorage] = {}
+        self._rpc: dict[str, Callable[..., Any]] = {}
+        self._killed: set[str] = set()
+        self._drops: dict[tuple[str, str], int] = {}
+        self._lock = threading.Lock()
+        self._now = time.time
+        self._servers: list[Any] = []
+        self._channels: dict[str, Any] = {}
+        self._proxies: list[Any] = []
+        self.ports: dict[str, int] = {}
+        if lease_ttl_s is None:
+            lease_ttl_s = fleet_mod.DEFAULT_LEASE_TTL_S
+        for name in hub_names:
+            service = service_factory(name)
+            hub = fleet_mod.FleetHub(
+                name,
+                service,
+                self.router,
+                storage,
+                liveness_ttl_s=liveness_ttl_s,
+                lease_ttl_s=lease_ttl_s,
+                lease_check_ttl_s=lease_check_ttl_s,
+            )
+            port = _find_free_port()
+            # make_grpc_server mounts the hub's tell observer over the raw
+            # storage itself — passing a pre-wrapped mount would observe
+            # every tell twice.
+            server = make_grpc_server(storage, host, port, suggest_service=hub)
+            server.start()
+            channel = grpc.insecure_channel(f"{host}:{port}")
+            proxy = GrpcStorageProxy(host=host, port=port)
+
+            def rpc(method, *args, _ch=channel, _name=name, **kwargs):
+                self._check_alive(_name)
+                raw = _ch.unary_unary(f"/{wire.SERVICE_NAME}/{method}")(
+                    wire.encode_request(method, args, kwargs), timeout=120.0
+                )
+                self._maybe_drop(_name, method)
+                ok, payload = wire.decode_response(raw)
+                if not ok:
+                    raise payload
+                return payload
+
+            self.hubs[name] = hub
+            self.mounted[name] = proxy
+            self._rpc[name] = rpc
+            self._servers.append(server)
+            self._channels[name] = channel
+            self._proxies.append(proxy)
+            self.ports[name] = port
+        for name, hub in self.hubs.items():
+            for peer_name in hub_names:
+                if peer_name != name:
+                    hub.set_peer(peer_name, _FleetPeerStub(self, peer_name))
+
+    def channel(self, name: str) -> Any:
+        """The hub's client-side channel — the seam
+        ``testing.netchaos.NetChaos.intercept`` wraps for socket chaos."""
+        return self._channels[name]
+
+    def close(self) -> None:
+        super().close()
+        for proxy in self._proxies:
+            try:
+                proxy.remove_session()
+            except Exception:  # teardown best-effort: one proxy's close must not strand the rest
+                pass
+        for channel in self._channels.values():
+            try:
+                channel.close()
+            except Exception:  # teardown best-effort: one channel's close must not strand the rest
+                pass
+        for server in self._servers:
+            try:
+                server.stop(0)
+            except Exception:  # teardown best-effort: one server's stop must not strand the rest
+                pass
 
 
 def tear_journal_tail(file_path: str, keep_bytes: int = 7) -> int:

@@ -334,10 +334,7 @@ class StorageTestCase:
     # plain study-system-attr surface, so the ``ckpt:`` namespace is part of
     # the storage contract: every backend must round-trip the framed blobs,
     # keep the two-slot ring bounded, and never clobber neighboring system
-    # attrs, including under injected transient faults. The reference's two
-    # lease cases (``test_lease_record_round_trip_and_epoch_monotonic``,
-    # ``test_lease_stale_epoch_write_rejected``) come back with the fleet
-    # leases (ROADMAP A9).
+    # attrs, including under injected transient faults.
 
     def test_checkpoint_round_trip(self, storage: BaseStorage) -> None:
         from optuna_tpu_torch import checkpoint as ckpt
@@ -399,6 +396,66 @@ class StorageTestCase:
         assert token in ops.told
         assert ops.max_run_id == 2
         assert ckpt.parse_op_token(token) == (2, 5, 1)
+
+    # ------------------------------------------------- lease attr namespace
+    # The fleet's study-ownership leases (storages/_grpc/fleet.py) persist
+    # through the same study-system-attr surface, so the `lease:` namespace
+    # is part of the storage contract: every backend must round-trip the
+    # epoch-numbered record, keep the epoch monotonic across takeovers, and
+    # enforce stale-epoch rejection through LeaseFencedStorage — including
+    # under injected transient faults (the under-faults matrix reruns these
+    # rows through FaultInjectorStorage).
+
+    def test_lease_record_round_trip_and_epoch_monotonic(
+        self, storage: BaseStorage
+    ) -> None:
+        from optuna_tpu_torch.storages._grpc import fleet
+
+        sid = storage.create_new_study(MINIMIZE)
+        owner = fleet.StudyLeases(storage, "hub-a", check_ttl_s=0.0)
+        assert owner.acquire(sid) == 1
+        rec = fleet.read_lease(storage, sid)
+        assert rec is not None
+        assert (rec["owner"], rec["epoch"]) == ("hub-a", 1)
+        assert rec["ttl_s"] == owner.ttl_s
+        assert rec["history"][-1]["owner"] == "hub-a"
+        successor = fleet.StudyLeases(storage, "hub-b", check_ttl_s=0.0)
+        assert successor.acquire(sid, takeover=True) == 2
+        rec = fleet.read_lease(storage, sid)
+        assert (rec["owner"], rec["epoch"]) == ("hub-b", 2)
+        assert [h["epoch"] for h in rec["history"]] == [1, 2]
+        # Failback: the original owner reclaims with a fresh epoch — the
+        # epoch never reuses a value, so zombie writes stay fenceable.
+        assert owner.acquire(sid, takeover=True) == 3
+        assert fleet.read_lease(storage, sid)["epoch"] == 3
+
+    def test_lease_stale_epoch_write_rejected(self, storage: BaseStorage) -> None:
+        from optuna_tpu_torch import checkpoint as ckpt
+        from optuna_tpu_torch.exceptions import StaleLeaseError
+        from optuna_tpu_torch.storages._grpc import fleet
+
+        sid = storage.create_new_study(MINIMIZE)
+        zombie_leases = fleet.StudyLeases(storage, "hub-a", check_ttl_s=0.0)
+        demotions: list[int] = []
+        fenced = fleet.LeaseFencedStorage(
+            storage,
+            zombie_leases,
+            on_fenced=lambda study_id, err: demotions.append(study_id),
+        )
+        assert zombie_leases.acquire(sid) == 1
+        key = f"{ckpt.CKPT_ATTR_PREFIX}hub:0"
+        fenced.set_study_system_attr(sid, key, "owned-write")
+        successor = fleet.StudyLeases(storage, "hub-b", check_ttl_s=0.0)
+        assert successor.acquire(sid, takeover=True) == 2
+        with pytest.raises(StaleLeaseError):
+            fenced.set_study_system_attr(sid, key, "zombie-write")
+        # The rejected write never reached the backing storage, and the
+        # demotion callback fired for exactly this study.
+        assert storage.get_study_system_attrs(sid)[key] == "owned-write"
+        assert demotions == [sid]
+        # Non-serve-state attrs stay unfenced (single-writer diagnostics).
+        fenced.set_study_system_attr(sid, "unrelated", "passes")
+        assert storage.get_study_system_attrs(sid)["unrelated"] == "passes"
 
     def test_retry_clone_fixed_params_survive_checkpointed_study(self, storage: BaseStorage) -> None:
         from optuna_tpu_torch import checkpoint as ckpt

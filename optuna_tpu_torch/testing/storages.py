@@ -3,13 +3,14 @@
 
 Parity target: ``optuna/testing/storages.py:34-197`` — ``STORAGE_MODES`` and
 a ``StorageSupplier`` context manager that materializes each backend:
-tempfile SQLite, journal files, the fake-Redis journal and the PostgreSQL
-dialect over the fake DB-API. The reference's two ``grpc_*`` modes come with
-the gRPC proxy (ROADMAP A9).
+tempfile SQLite, journal files, the fake-Redis journal, the PostgreSQL
+dialect over the fake DB-API, and a real in-process gRPC proxy server on a
+free loopback port over sqlite or a journal file (the two ``grpc_*`` modes).
 """
 
 from __future__ import annotations
 
+import socket
 import tempfile
 from types import TracebackType
 from typing import Any
@@ -23,9 +24,17 @@ STORAGE_MODES: list[str] = [
     "journal",
     "journal_redis",  # fake-redis backed, like the reference's fakeredis mode
     "fakepg",  # PostgreSQL wire dialect over the fake DBAPI (no server needed)
+    "grpc_rdb",
+    "grpc_journal_file",
 ]
 
 STORAGE_MODES_HEARTBEAT = ["sqlite", "cached_sqlite", "fakepg"]
+
+
+def _find_free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 class StorageSupplier:
@@ -34,6 +43,8 @@ class StorageSupplier:
         self.extra_args = kwargs
         self.tempfile: Any = None
         self._fakepg_db: str | None = None
+        self.server: Any = None
+        self.proxy: Any = None
 
     def __enter__(self) -> BaseStorage:
         if self.storage_specifier == "inmemory":
@@ -79,6 +90,26 @@ class StorageSupplier:
                 "redis://localhost", client=client, **self.extra_args
             )
             return JournalStorage(backend)
+        if self.storage_specifier.startswith("grpc_"):
+            from optuna_tpu_torch.storages._grpc.client import GrpcStorageProxy
+            from optuna_tpu_torch.storages._grpc.server import make_grpc_server
+
+            inner_mode = self.storage_specifier[len("grpc_"):]
+            if inner_mode == "rdb":
+                from optuna_tpu_torch.storages._rdb.storage import RDBStorage
+
+                self.tempfile = tempfile.NamedTemporaryFile(suffix=".db")
+                backing: BaseStorage = RDBStorage(f"sqlite:///{self.tempfile.name}")
+            else:
+                from optuna_tpu_torch.storages.journal import JournalFileBackend, JournalStorage
+
+                self.tempfile = tempfile.NamedTemporaryFile(suffix=".journal")
+                backing = JournalStorage(JournalFileBackend(self.tempfile.name))
+            port = _find_free_port()
+            self.server = make_grpc_server(backing, "localhost", port)
+            self.server.start()
+            self.proxy = GrpcStorageProxy(host="localhost", port=port)
+            return self.proxy
         raise ValueError(f"Unknown storage specifier {self.storage_specifier}")
 
     def __exit__(
@@ -87,6 +118,12 @@ class StorageSupplier:
         exc_val: BaseException | None,
         exc_tb: TracebackType | None,
     ) -> None:
+        if self.proxy is not None:
+            self.proxy.remove_session()
+            self.proxy = None
+        if self.server is not None:
+            self.server.stop(grace=None)
+            self.server = None
         if self.tempfile is not None:
             self.tempfile.close()
             self.tempfile = None

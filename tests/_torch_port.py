@@ -390,3 +390,90 @@ def assert_forests_agree(
                 gains.append((w * y_std).sum() ** 2 / w.sum() + 1e-7)
             assert abs(gains[0] - gains[1]) <= gain_rtol * max(abs(gains[0]), 1.0), (t, k, gains)
     return partings
+
+
+# ------------------------------------------------ the serve tier: both packages
+
+
+def mount(pkg, storage, service=None):
+    """Mount ``storage`` (and a suggestion ``service``) behind ``pkg``'s server
+    request path with no socket: the port's grpc-free dispatcher
+    (``testing.fault_injection.mount_dispatch``), or the reference's gRPC
+    handler called directly. Returns ``(mounted storage, rpc(method, *args,
+    **kwargs))``; an error answer raises."""
+    import types
+
+    from importlib import import_module
+
+    if pkg.__name__ == "optuna_tpu_torch":
+        from optuna_tpu_torch.testing.fault_injection import mount_dispatch
+
+        return mount_dispatch(storage, service)
+    wire = import_module(pkg.__name__ + ".storages._grpc._service")
+    server = import_module(pkg.__name__ + ".storages._grpc.server")
+    mounted = service.wrap_storage(storage) if service is not None else storage
+    method_handler = server._make_handler(mounted, service).service(
+        types.SimpleNamespace(method=f"/{wire.SERVICE_NAME}/x")
+    )
+
+    def rpc(method, *args, **kwargs):
+        ok, payload = wire.decode_response(method_handler.unary_unary(wire.encode_request(method, args, kwargs), None))
+        if not ok:
+            raise payload
+        return payload
+
+    return mounted, rpc
+
+
+def thin_ask(pkg, rpc):
+    """A ``ThinClientSampler`` ask callable over ``rpc`` (op token riding
+    the wire as the thin client sends it): the port's
+    ``testing.fault_injection.thin_client_ask`` for either ``pkg``, since
+    both packages name the token kwarg alike (``test_torch_grpc_wire``)."""
+    from optuna_tpu_torch.testing.fault_injection import thin_client_ask
+
+    return thin_client_ask(rpc)
+
+
+def stub_sampler(pkg, seed: int = 0, *, startup: int = 2, fail_with: BaseException | None = None):
+    """A ``pkg`` sampler whose relative proposals are draws of one
+    ``RandomState(seed)`` over a fixed two-float space (after ``startup``
+    COMPLETE trials): the same proposals in both packages, so a serve-tier
+    decision sequence is compared with no model in the way. Each batch
+    width it was asked for lands in ``.widths``; ``fail_with`` is raised by
+    every relative call instead."""
+    d = pkg.distributions
+    space = {"x": d.FloatDistribution(0.0, 1.0), "y": d.FloatDistribution(-1.0, 1.0)}
+
+    class Stub(pkg.samplers.BaseSampler):
+        def __init__(self):
+            self.rng = np.random.RandomState(seed)
+            self.widths: list[int] = []
+
+        def infer_relative_search_space(self, study, trial):
+            done = study._get_trials(deepcopy=False, states=(pkg.trial.TrialState.COMPLETE,), use_cache=False)
+            return dict(space) if len(done) >= startup else {}
+
+        def _draw(self, search_space):
+            if fail_with is not None:
+                raise fail_with
+            return {k: float(space[k].low + (space[k].high - space[k].low) * self.rng.uniform()) for k in sorted(search_space)}
+
+        def sample_relative(self, study, trial, search_space):
+            self.widths.append(1)
+            return self._draw(search_space) if search_space else {}
+
+        def sample_relative_batch(self, study, search_space, batch_size):
+            self.widths.append(batch_size)
+            return [self._draw(search_space) for _ in range(batch_size)]
+
+        def sample_independent(self, study, trial, param_name, param_distribution):
+            return float(self.rng.uniform(param_distribution.low, param_distribution.high))
+
+    return Stub()
+
+
+def serve_objective(trial) -> float:
+    x = trial.suggest_float("x", 0.0, 1.0)
+    y = trial.suggest_float("y", -1.0, 1.0)
+    return (x - 0.3) ** 2 + (y + 0.2) ** 2

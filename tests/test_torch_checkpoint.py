@@ -355,8 +355,9 @@ def _killed(backend, plan, name):
 
 
 def test_checkpoint_chaos_matrix_covers_every_loop_event():
-    # ``warm_load`` is the serve tier's hub re-home (ROADMAP A9).
-    assert set(CHECKPOINT_CHAOS_MATRIX) == set(ckpt.CHECKPOINT_EVENTS) - {"warm_load"}
+    # The loops' events and the serve tier's hub re-home (``warm_load``,
+    # tests/test_torch_fleet.py).
+    assert set(CHECKPOINT_CHAOS_MATRIX) == set(ckpt.CHECKPOINT_EVENTS)
 
 
 def test_plan_preempts_mid_chunk():

@@ -16,8 +16,8 @@ CPU, against the reference.
   ``plant_stale_lock`` takeover in both lock flavours, a live lock not
   stolen, a stale lock not wedging a study).
 - The storage URLs: ``journal://`` and ``*.journal`` resolve to the file
-  journal, ``sqlite://`` to the cached RDB storage, and ``grpc://`` raises,
-  naming ROADMAP A9.
+  journal, ``sqlite://`` to the cached RDB storage, and ``grpc://`` to the cached
+  gRPC proxy (a port that is not a number raises).
 """
 
 from __future__ import annotations
@@ -372,7 +372,18 @@ def test_sqlite_url_runs_and_reloads_through_the_cache(tmp_path):
 
 
 def test_grpc_url_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        optuna_tpu_torch.storages.get_storage("grpc://localhost:13000")
+    # What still raises: a URL with no backend, and a gRPC URL whose port is
+    # not a number (parsed before a channel is built: no grpc needed).
     with pytest.raises(ValueError, match="Unrecognized"):
         optuna_tpu_torch.storages.get_storage("ftp://nowhere")
+    with pytest.raises(ValueError):
+        optuna_tpu_torch.storages.get_storage("grpc://localhost:notaport")
+
+
+def test_grpc_url_resolves_to_the_cached_proxy():
+    from optuna_tpu_torch.storages import GrpcStorageProxy, _CachedStorage
+
+    pytest.importorskip("grpc")
+    storage = optuna_tpu_torch.storages.get_storage("grpc://localhost:13000")  # the channel dials lazily
+    assert isinstance(storage, _CachedStorage) and isinstance(storage._backend, GrpcStorageProxy)
+    storage._backend.remove_session()

@@ -33,7 +33,7 @@ NOT_YET: dict[str, dict[str, str]] = {
         "hartmann6_jax": "not queued",
         "rastrigin_jax": "not queued",
     },
-    "samplers": {"ThinClientSampler": "A9"},
+    "samplers": {},
     "terminator": {},
     "importance": {},
     "visualization": {},
@@ -45,7 +45,7 @@ NOT_YET: dict[str, dict[str, str]] = {
     "autopilot": {},
     "slo": {},
     "locksan": {},
-    "storages": {"GrpcStorageProxy": "A9", "run_grpc_proxy_server": "A9"},
+    "storages": {},
     "parallel": {
         name: "A8a"
         for name in (

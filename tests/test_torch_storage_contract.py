@@ -4,9 +4,9 @@ the reference's: plainly, and with every call passing through
 ``FaultInjectorStorage`` (5 % transient faults) and ``RetryingStorage``.
 
 The modes are ``optuna_tpu_torch.testing.storages.STORAGE_MODES``: in
-memory, sqlite, cached sqlite, the journal file, the fake-Redis journal and
-the PostgreSQL dialect over the fake DB-API. The reference's two gRPC modes
-come with the gRPC proxy (ROADMAP A9).
+memory, sqlite, cached sqlite, the journal file, the fake-Redis journal,
+the PostgreSQL dialect over the fake DB-API, and the port's gRPC proxy on a
+loopback port over sqlite and over a journal file: the reference's modes.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ def test_fault_matrix_actually_injected():
 
 
 def test_modes_are_the_references_less_the_grpc_proxy():
+    # The gRPC proxy is ported, so nothing is left out any more.
     from optuna_tpu.testing.storages import STORAGE_MODES as REF_MODES
 
-    assert STORAGE_MODES == [m for m in REF_MODES if not m.startswith("grpc_")]
+    assert STORAGE_MODES == REF_MODES

@@ -344,10 +344,17 @@ def test_get_storage_keeps_urls_for_the_backends_slice(tmp_path):
     assert get_storage(storage) is storage
     assert isinstance(get_storage(None), InMemoryStorage)
     # The RDB and journal URLs resolve (tests/test_torch_journal.py runs
-    # them); the gRPC proxy's waits for its slice.
+    # them), and so does the gRPC proxy's (the test below).
     rdb = get_storage(f"sqlite:///{tmp_path / 'study.db'}")
     assert isinstance(rdb, _CachedStorage) and isinstance(rdb._backend, RDBStorage)
-    with pytest.raises(NotImplementedError, match="A9"):
-        get_storage("grpc://localhost:13000")
     with pytest.raises(ValueError):
         get_storage(3)
+
+
+def test_get_storage_resolves_the_grpc_url_to_the_cached_proxy():
+    from optuna_tpu_torch.storages import GrpcStorageProxy, get_storage
+
+    pytest.importorskip("grpc")
+    proxied = get_storage("grpc://localhost:13000")  # the channel dials lazily: no server needed
+    assert isinstance(proxied, _CachedStorage) and isinstance(proxied._backend, GrpcStorageProxy)
+    proxied._backend.remove_session()
