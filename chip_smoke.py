@@ -141,9 +141,11 @@ Phases (any failure exits non-zero and prints no result line):
     steps from ``base * init_scale`` at rate ``lr`` (``models.mlp.
     train_scaled_batch``), ``TPESampler(seed=0, multivariate=True,
     constant_liar=True, n_startup_trials=10)``, batches of 256 through
-    ``optimize_vectorized``: 256 warm-up trials, then 2048 timed, twice
-    (identical trial for trial). Trials/s (host clock), one warm batch's
-    device time (CUDA events) and GFLOP/s by ``bench.py:1157-1174``'s count,
+    ``optimize_vectorized``: 256 warm-up trials, then 2048 timed, once (two
+    seeded runs of this index-loss path are not held to each other; phase
+    36(a)'s twins hold two seeded runs of the same trainer on the one-hot
+    loss to each other). Trials/s (host clock), one warm batch's device time
+    (CUDA events) and GFLOP/s by ``bench.py:1157-1174``'s count,
     the device's busy share over two more traced batches, the best value;
     every trial COMPLETE inside its distributions; the executor's one
     synchronizing call a batch; the last batch on the card against CPU
@@ -242,6 +244,33 @@ Phases (any failure exits non-zero and prints no result line):
     survivor: the lease epoch bumped to it, one ``checkpoint.warm_load``,
     and the cold first dispatch beside the warm one after the re-home.
 
+36. The sharded tier. (a) Config #5's sharded MLP (``bench.py::
+    _sharded_mlp_objective`` in torch: ``models.mlp.train_scaled_batch``
+    with ``cross_entropy_onehot``, 10 SGD steps) as a ``ShardedObjective`` with the
+    rules ``w1 -> (None, "model")``, ``b1 -> ("model",)``, ``w2 -> ("model",
+    None)``, ``.* -> ()``, its model as ``DTensor`` s on a 1 x 1 mesh of the
+    card (NCCL on a one-rank ``HashStore`` group): ``TPESampler(seed=0,
+    multivariate=True, constant_liar=True, n_startup_trials=10)``, 256
+    warm-up and 512 timed trials in batches of 256 through
+    ``optimize_sharded``, and its twin through ``optimize_vectorized`` of the
+    same function on plain tensors: identical trial for trial (trials,
+    states, params, values). Trials/s of both, the ``DTensor`` overhead (the
+    sharded run's seconds less the twin's), the busy share over one more
+    warm batch, the placements and local shapes of ``w1``/``b1``/``w2``.
+    (b) A two-rank pod on this host: two processes started with the script
+    (gloo over a file, both evaluating on ``cuda:0``, since NCCL refuses two
+    ranks on one card), mesh ``{'trials': 2, 'model': 1}`` over
+    ``JournalStorage(IciJournalBackend())`` in the pod's lockstep;
+    ``RandomSampler(seed=0)``, 4 batches of 16 of config #5's MLP, one
+    poison row in shard t1's rows of batch 2 (row 11). The first failed
+    dispatch splits into the two shard groups; t0's 8 trials complete in one
+    re-dispatch and the bisection stays inside t1's rows; only the poison
+    trial FAILs, every other trial COMPLETEs once; both ranks' merged logs
+    and studies are equal; the leader's study equals a one-process twin on
+    the card at 1 x 1 (params and states exactly, values within 1e-5: the
+    ranks multiply 8 rows where the twin multiplies 16). No kernel of the
+    repo launches, in this process or the pod's.
+
 The longest CPU twins (phase 7's hypervolume, phase 21's M = 5 HSSP,
 phase 28's two LogEHVI asks and phase 33's terminator evaluators, each with
 ``device="cpu"``) run in one helper process (:class:`CpuTwins`, niced,
@@ -250,13 +279,13 @@ phases; each phase holds the card's result against its twin when it gets
 there. Their seconds are the helper's, beside the card's work.
 
 The kernel launch counters are set to 0 just before each path (phases 4-5,
-6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34, 35) and
+6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34, 35, 36) and
 read just after it; every kernel must have launched on its path, the
 single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
 phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
 chunk and a swap-in on phase 32, K1 and K3 exactly as counted on phase 33
 (no other kernel), K1 exactly as its spy counts on phase 34, K1 once a
-hub dispatch on phase 35, and the
+hub dispatch on phase 35, no kernel on phase 36, and the
 dominance-matrix and one-node WFG kernels not at all (the ranking
 kernels rank, the stack kernel runs every node). The counters are raised
 under a lock in each wrapper, so the threaded launches of phase 18 count
@@ -267,6 +296,7 @@ is the kernel table as JSON (every kernel, the two check kernels with their
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
@@ -275,6 +305,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -2914,6 +2945,21 @@ def mlp_space() -> dict:
     return {"lr": FloatDistribution(1e-3, 1.0, log=True), "init_scale": FloatDistribution(0.3, 3.0)}
 
 
+def mlp_problem() -> tuple[np.ndarray, np.ndarray, dict]:
+    """``bench.py::_mlp_problem``: ``RandomState(0)``'s 256 x 784 inputs, 10
+    classes and the initial weights at hidden width 32."""
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(256, 784)).astype(np.float32)
+    y = rng.randint(0, 10, 256).astype(np.int32)
+    init = {
+        "w1": rng.normal(0, 0.1, (784, 32)).astype(np.float32),
+        "b1": np.zeros(32, np.float32),
+        "w2": rng.normal(0, 0.1, (32, 10)).astype(np.float32),
+        "b2": np.zeros(10, np.float32),
+    }
+    return x, y, init
+
+
 def mlp_objective_fn(device, dtype=None):
     """Config #5's batched objective on ``device``: ``bench.py::_mlp_problem``'s
     data and initial weights (``RandomState(0)``: 256 examples of 784
@@ -2924,15 +2970,7 @@ def mlp_objective_fn(device, dtype=None):
 
     from optuna_tpu_torch.models.mlp import MLPParams, mlp_params_from_numpy, train_scaled_batch
 
-    rng = np.random.RandomState(0)
-    x = rng.normal(size=(256, 784)).astype(np.float32)
-    y = rng.randint(0, 10, 256).astype(np.int32)
-    init = {
-        "w1": rng.normal(0, 0.1, (784, 32)).astype(np.float32),
-        "b1": np.zeros(32, np.float32),
-        "w2": rng.normal(0, 0.1, (32, 10)).astype(np.float32),
-        "b2": np.zeros(10, np.float32),
-    }
+    x, y, init = mlp_problem()
     dtype = dtype or torch.float32
     base = MLPParams(*(p.to(dtype) for p in mlp_params_from_numpy(init, device)))
     tx, ty = torch.from_numpy(x).to(device, dtype), torch.from_numpy(y).to(device)
@@ -2966,7 +3004,10 @@ def phase_mlp(gpu: str) -> dict:
     """BASELINE config #5 as ``bench.py::run_ours_mlp_vectorized`` runs it:
     ``TPESampler(seed=0, multivariate=True, constant_liar=True,
     n_startup_trials=10)``, batches of 256 through ``optimize_vectorized``,
-    256 warm-up trials and 2048 timed, twice on the card with one seed."""
+    256 warm-up trials and 2048 timed, once on the card. Two seeded runs of
+    this ``train_scaled_batch`` path are no longer held to each other on the
+    card; phase 36(a) holds two seeded runs of config #5's sharded form
+    (the one-hot loss) to each other."""
     import torch
 
     import optuna_tpu_torch as ot
@@ -2976,29 +3017,21 @@ def phase_mlp(gpu: str) -> dict:
 
     device = torch.device("cuda", 0)
     fn = mlp_objective_fn(device)
-    runs = []
-    for _ in range(2):
-        study = ot.create_study(
-            sampler=TPESampler(seed=0, multivariate=True, constant_liar=True, n_startup_trials=10)
-        )
-        objective = VectorizedObjective(fn, mlp_space())
-        t0 = time.perf_counter()
-        optimize_vectorized(study, objective, MLP_WARMUP, batch_size=MLP_BATCH)
-        warm_s = time.perf_counter() - t0
-        registry = telemetry.MetricsRegistry()
-        telemetry.enable(registry)
-        try:
-            t1 = time.perf_counter()
-            optimize_vectorized(study, objective, MLP_TIMED, batch_size=MLP_BATCH)
-            timed_s = time.perf_counter() - t1  # every batch's tells read its values: the card has finished
-        finally:
-            telemetry.disable()
-        phases = telemetry.phase_totals(registry.snapshot())
-        runs.append({"study": study, "objective": objective, "warm_s": warm_s, "timed_s": timed_s, "phases": phases})
-    study = runs[0]["study"]
+    study = ot.create_study(sampler=TPESampler(seed=0, multivariate=True, constant_liar=True, n_startup_trials=10))
+    objective = VectorizedObjective(fn, mlp_space())
+    t0 = time.perf_counter()
+    optimize_vectorized(study, objective, MLP_WARMUP, batch_size=MLP_BATCH)
+    warm_s = time.perf_counter() - t0
+    registry = telemetry.MetricsRegistry()
+    telemetry.enable(registry)
+    try:
+        t1 = time.perf_counter()
+        optimize_vectorized(study, objective, MLP_TIMED, batch_size=MLP_BATCH)
+        timed_s = time.perf_counter() - t1  # every batch's tells read its values: the card has finished
+    finally:
+        telemetry.disable()
+    phases = telemetry.phase_totals(registry.snapshot())
     check_all_complete("config #5", study, MLP_WARMUP + MLP_TIMED)
-    if trial_rows(study) != trial_rows(runs[1]["study"]):
-        fail("config #5: two seeded runs on the card differ")
 
     # One warm batch's device time and the card against CPU torch, on the
     # last batch's params.
@@ -3020,36 +3053,32 @@ def phase_mlp(gpu: str) -> dict:
              "error")
     told_diff = float(np.max(np.abs(card - told)))
 
-    # Synchronizing calls of one more batch of the twin, by line: the
-    # executor's must be the dispatch's one read.
-    twin, twin_objective = runs[1]["study"], runs[1]["objective"]
-    sites = sync_sites(lambda: optimize_vectorized(twin, twin_objective, MLP_BATCH, batch_size=MLP_BATCH))
+    # Synchronizing calls of one more batch, by line: the executor's must be
+    # the dispatch's one read.
+    sites = sync_sites(lambda: optimize_vectorized(study, objective, MLP_BATCH, batch_size=MLP_BATCH))
     in_executor = sum(v for k, v in sites.items() if k.startswith("optuna_tpu_torch/parallel/executor.py"))
     if in_executor != 1:
         fail(f"config #5: a batch made {in_executor} synchronizing calls in the executor, expected its one read: {sites}")
-    # The device's busy share, from a trace of a few more batches of the twin.
+    # The device's busy share, from a trace of a few more batches.
     wall_ms, busy_ms, kernels, dtoh, syncs = profiled(
         "config 5 batches",
-        lambda: optimize_vectorized(twin, twin_objective, MLP_PROFILED * MLP_BATCH, batch_size=MLP_BATCH),
+        lambda: optimize_vectorized(study, objective, MLP_PROFILED * MLP_BATCH, batch_size=MLP_BATCH),
     )
     n_batches = MLP_TIMED // MLP_BATCH
     flops_batch = mlp_flops_per_trial() * MLP_BATCH
     out = {
-        "trials_per_s": [MLP_TIMED / r["timed_s"] for r in runs],
+        "trials_per_s": MLP_TIMED / timed_s,
         "batch_ms": batch_ms,
         "gflops": flops_batch / (batch_ms * 1e-3) / 1e9,
-        "duty": batch_ms * 1e-3 * n_batches / runs[0]["timed_s"],
+        "duty": batch_ms * 1e-3 * n_batches / timed_s,
         "busy": busy_ms / wall_ms,
         "best": study.best_value,
     }
-    per_batch = " / ".join(
-        ", ".join(f"{k} {v['total_s'] / v['count'] * 1e3:.2f} ms" for k, v in r["phases"].items()) for r in runs
-    )
+    per_batch = ", ".join(f"{k} {v['total_s'] / v['count'] * 1e3:.2f} ms" for k, v in phases.items())
     print(
         f"phase 29, config #5 (256-way MLP, TPESampler(seed=0, multivariate, constant_liar, n_startup_trials=10), "
-        f"batches of {MLP_BATCH}; {gpu}): {MLP_WARMUP} warm-up trials in {runs[0]['warm_s']:.3f} / "
-        f"{runs[1]['warm_s']:.3f} s, then {MLP_TIMED} timed: {out['trials_per_s'][0]:.1f} / "
-        f"{out['trials_per_s'][1]:.1f} trials/s (host clock, two seeded runs, identical trial for trial); per batch "
+        f"batches of {MLP_BATCH}; {gpu}): {MLP_WARMUP} warm-up trials in {warm_s:.3f} s, then "
+        f"{MLP_TIMED} timed: {out['trials_per_s']:.1f} trials/s (host clock, one seeded run); per batch "
         f"{per_batch} ({n_batches} batches); one warm batch {batch_ms:.4f} ms on the device (CUDA events, {MLP_BATCH} trials "
         f"x 10 SGD steps, {flops_batch / 1e9:.2f} GFLOP): {out['gflops']:.1f} GFLOP/s; duty cycle {out['duty']:.4f} "
         f"(that batch time x {n_batches} over the timed window, bench.py's estimate); device busy {out['busy']:.4f} "
@@ -3061,6 +3090,320 @@ def phase_mlp(gpu: str) -> dict:
     )
     return out
 
+
+SHARDED_BATCH, SHARDED_WARMUP, SHARDED_TIMED = 256, 256, 512  # phase 36(a): bench.py --loop=sharded at 1 x 1
+SHARDED_RULES = [("w1", (None, "model")), ("b1", ("model",)), ("w2", ("model", None)), (".*", ())]
+POD_RANKS, POD_BATCH, POD_BATCHES = 2, 16, 4  # phase 36(b): {'trials': 2, 'model': 1}, 4 batches of 16
+POD_POISON = (2, 11)  # (dispatch, row): batch 2's first dispatch, row 11 = shard t1's fourth row
+POD_VALUE_RTOL = 1e-5  # the pod's ranks multiply 8 rows where the 1 x 1 twin multiplies 16 (another GEMM shape)
+POD_TIMEOUT_S = 300
+
+
+def sharded_mlp_parts(device):
+    """Config #5 as ``bench.py::_sharded_mlp_objective`` writes it, in torch:
+    the ``ShardedObjective`` (its model the rules' ``DTensor`` s, the data
+    replicated on the mesh) and the same training on plain tensors, the fn
+    of its ``optimize_vectorized`` twin. One function,
+    ``models.mlp.train_scaled_batch`` with ``cross_entropy_onehot``, runs
+    both."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from optuna_tpu_torch.models.mlp import (
+        MLPParams,
+        cross_entropy_onehot,
+        mlp_params_from_numpy,
+        train_scaled_batch,
+    )
+    from optuna_tpu_torch.parallel import ShardedObjective
+
+    x, y, init = mlp_problem()
+    tx = torch.from_numpy(x).to(device)
+    onehot = torch.eye(10, device=device)[torch.from_numpy(y).long().to(device)]
+    base = mlp_params_from_numpy(init, device)
+
+    def plain(params):
+        return train_scaled_batch(
+            base, tx, onehot, params["lr"], params["init_scale"], MLP_STEPS, cross_entropy_onehot
+        )
+
+    def sharded(params, m):
+        mesh = m["w1"].device_mesh
+        rep = [Replicate()] * mesh.ndim
+        dx = DTensor.from_local(tx, mesh, rep, run_check=False)
+        doh = DTensor.from_local(onehot, mesh, rep, run_check=False)
+        model = MLPParams(m["w1"], m["b1"], m["w2"], m["b2"])
+        return train_scaled_batch(
+            model, dx, doh, params["lr"], params["init_scale"], MLP_STEPS, cross_entropy_onehot
+        )
+
+    return ShardedObjective(sharded, mlp_space(), model=init, partition_rules=SHARDED_RULES), plain
+
+
+def sharded_twins(mesh, warmup: int, timed: int, batch: int) -> dict:
+    """Phase 36(a)'s two runs of config #5's study on the card, the sharded
+    one and its ``optimize_vectorized`` twin, each ``warmup`` + ``timed``
+    trials in batches of ``batch``; fails unless they are identical trial
+    for trial."""
+    import torch
+
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.parallel import VectorizedObjective, optimize_sharded, optimize_vectorized
+    from optuna_tpu_torch.samplers import TPESampler
+
+    objective, plain = sharded_mlp_parts(torch.device("cuda", 0))
+    twin_objective = VectorizedObjective(plain, mlp_space())
+    runs: dict = {"objective": objective}
+    for name in ("sharded", "twin"):
+        study = ot.create_study(
+            sampler=TPESampler(seed=0, multivariate=True, constant_liar=True, n_startup_trials=10)
+        )
+        if name == "sharded":
+            step = lambda n: optimize_sharded(study, objective, n, batch_size=batch, mesh=mesh)  # noqa: E731
+        else:
+            step = lambda n: optimize_vectorized(study, twin_objective, n, batch_size=batch)  # noqa: E731
+        t0 = time.perf_counter()
+        step(warmup)
+        warm_s = time.perf_counter() - t0
+        batch_s = []
+        for _ in range(timed // batch):  # a call a batch, for each batch's seconds
+            t1 = time.perf_counter()
+            step(batch)  # every batch's tells read its values: the card has finished
+            batch_s.append(time.perf_counter() - t1)
+        runs[name] = {"study": study, "warm_s": warm_s, "timed_s": sum(batch_s), "batch_s": batch_s}
+        check_all_complete(f"phase 36(a) {name}", study, warmup + timed)
+    if trial_rows(runs["sharded"]["study"]) != trial_rows(runs["twin"]["study"]):
+        fail("phase 36(a): the sharded run and its optimize_vectorized twin differ")
+    return runs
+
+
+class PoisonRow:
+    """A ``raise_when`` predicate: at dispatch ``dispatch`` the trial in row
+    ``row`` becomes the poison (by its ``lr``), and every dispatch whose
+    batch holds it raises, so the poison follows its trial through the
+    containment's re-dispatches on every rank alike."""
+
+    def __init__(self, dispatch: int, row: int) -> None:
+        self.dispatch, self.row, self.seen, self.value = dispatch, row, 0, None
+
+    def __call__(self, host: dict) -> bool:
+        if self.seen == self.dispatch:
+            self.value = host["lr"][self.row]
+        self.seen += 1
+        return self.value is not None and bool(np.any(host["lr"] == self.value))
+
+
+def pod_objective(device=None):
+    import torch
+
+    from optuna_tpu_torch.testing.fault_injection import FaultyVectorizedObjective
+
+    _, plain = sharded_mlp_parts(torch.device("cuda", 0) if device is None else torch.device(device))
+    return FaultyVectorizedObjective(plain, mlp_space(), raise_when=PoisonRow(*POD_POISON))
+
+
+def pod_study(mesh, rank: int, device=None) -> tuple:
+    """Phase 36(b)'s run on one rank (or, with one rank, its twin):
+    ``RandomSampler(seed=0)`` over ``JournalStorage(IciJournalBackend())``,
+    ``POD_BATCHES`` batches of ``POD_BATCH`` through ``optimize_sharded``."""
+    import optuna_tpu_torch as ot
+    from optuna_tpu_torch.parallel import IciJournalBackend, optimize_sharded
+    from optuna_tpu_torch.samplers import RandomSampler
+    from optuna_tpu_torch.storages.journal import JournalStorage
+
+    backend = IciJournalBackend()
+    storage = JournalStorage(backend)
+    if rank == 0:
+        storage.create_new_study([ot.StudyDirection.MINIMIZE], study_name="pod")
+    else:
+        backend.exchange()  # the leader's create
+    study = ot.load_study(study_name="pod", storage=storage, sampler=RandomSampler(seed=0))
+    objective = pod_objective(device)
+    t0 = time.perf_counter()
+    optimize_sharded(study, objective, POD_BATCH * POD_BATCHES, batch_size=POD_BATCH, mesh=mesh, device=device)
+    return study, backend, objective, time.perf_counter() - t0
+
+
+def _pod_rank(rank: int, tmp: str, go, queue) -> None:
+    """One rank of phase 36(b): imports torch and the port and joins the
+    gloo group at the script's start (niced, as the CPU twins' helper is),
+    then waits for the phase. It touches the card only then: an idle CUDA
+    context costs the card's host ~0.15 of a core a rank (``PERF.md``)."""
+    import torch.distributed as dist
+
+    try:
+        os.nice(10)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp}/pg", rank=rank, world_size=POD_RANKS,
+            timeout=datetime.timedelta(seconds=POD_TIMEOUT_S),
+        )
+        import importlib
+
+        import optuna_tpu_torch
+        from optuna_tpu_torch.parallel import build_study_mesh
+
+        optuna_tpu_torch.logging.set_verbosity(optuna_tpu_torch.logging.ERROR)
+        wrappers = [importlib.import_module(k["module"]) for k in KERNELS]
+        if not go.wait(timeout=3600):
+            return
+        mesh = build_study_mesh({"trials": POD_RANKS, "model": 1}, device="cpu")
+        study, backend, objective, seconds = pod_study(mesh, rank, device="cuda")
+        launches = sum(getattr(w, k.get("counter", "LAUNCHES")) for w, k in zip(wrappers, KERNELS))
+        queue.put((rank, True, {
+            "rows": trial_rows(study), "logs": backend.read_logs(0), "widths": objective.dispatch_widths,
+            "seconds": seconds, "launches": launches,
+        }))
+    except BaseException:  # reported to the phase, which fails
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class PodRanks:
+    """Phase 36(b)'s two ranks, started with the script (``spawn``) so that
+    their start-up (torch, the port, the group) overlaps the other phases;
+    :meth:`run` starts the pod and returns each rank's result."""
+
+    def __init__(self) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+        self._go = ctx.Event()
+        self._queue = ctx.Queue()
+        self._procs = [
+            ctx.Process(target=_pod_rank, args=(r, self._dir, self._go, self._queue), daemon=True)
+            for r in range(POD_RANKS)
+        ]
+        for proc in self._procs:
+            proc.start()
+
+    def run(self) -> list[dict]:
+        import queue
+
+        self._go.set()
+        out: dict = {}
+        deadline = time.monotonic() + POD_TIMEOUT_S
+        while len(out) < POD_RANKS:
+            try:
+                rank, ok, value = self._queue.get(timeout=5.0)
+            except queue.Empty:
+                if time.monotonic() > deadline or not all(p.is_alive() for p in self._procs):
+                    self.close()
+                    fail(f"phase 36(b): the pod's ranks ended or hung (exit codes {[p.exitcode for p in self._procs]})")
+                continue
+            if not ok:
+                self.close()
+                fail(f"phase 36(b): rank {rank} raised:\n{value}")
+            out[rank] = value
+        self.close()
+        return [out[r] for r in range(POD_RANKS)]
+
+    def close(self) -> None:
+        for proc in self._procs:
+            proc.join(timeout=10.0)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10.0)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def pod_widths() -> list[int]:
+    """The dispatch widths phase 36(b)'s pod must make: batches 0-1 whole;
+    batch 2 fails and splits into its two shard groups (t0's 8 rows complete
+    in one re-dispatch), then the bisection stays inside t1's rows down to
+    the poison, each narrower dispatch padded to the 2 shards; batch 3
+    whole."""
+    return [16, 16, 16, 8, 8, 4, 2, 2, 2, 2, 4, 16]
+
+
+def phase_sharded(pod: PodRanks, gpu: str) -> dict:
+    """Phase 36: the sharded tier on the card (see the module docstring)."""
+    import torch.distributed as dist
+
+    from optuna_tpu_torch.parallel import build_study_mesh, optimize_sharded
+
+    t_start = time.perf_counter()
+    out: dict = {}
+    mesh = build_study_mesh({"trials": 1, "model": 1})
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        fail(f"phase 36: the 1 x 1 mesh is {mesh.device_type} over {dist.get_backend()}, expected cuda over nccl")
+
+    # (a) config #5's sharded MLP and its optimize_vectorized twin.
+    runs = sharded_twins(mesh, SHARDED_WARMUP, SHARDED_TIMED, SHARDED_BATCH)
+    objective = runs["objective"]
+    placed, _ = objective.sharded_model(mesh)
+    layout = {k: (str(placed[k].placements), tuple(placed[k].to_local().shape)) for k in ("w1", "b1", "w2")}
+    if tuple(placed["w1"].to_local().shape) != (784, 32) or any(v.device.type != "cuda" for v in placed.values()):
+        fail(f"phase 36(a): the model's DTensors are not where the 1 x 1 mesh puts them: {layout}")
+    study = runs["sharded"]["study"]
+    wall_ms, busy_ms, kernels, _, _ = profiled(
+        "sharded batch", lambda: optimize_sharded(study, objective, SHARDED_BATCH, batch_size=SHARDED_BATCH, mesh=mesh)
+    )
+    out["a"] = {
+        "trials_per_s": {k: SHARDED_TIMED / runs[k]["timed_s"] for k in ("sharded", "twin")},
+        "overhead_s": runs["sharded"]["timed_s"] - runs["twin"]["timed_s"],
+        "busy": busy_ms / wall_ms,
+        "best": study.best_value,
+    }
+    print(
+        f"phase 36(a), config #5 sharded (bench.py --loop=sharded at a 1 x 1 mesh, NCCL on a one-rank HashStore "
+        f"group; {gpu}): {SHARDED_WARMUP} warm-up trials in {runs['sharded']['warm_s']:.3f} s (twin "
+        f"{runs['twin']['warm_s']:.3f}), then {SHARDED_TIMED} timed in batches of {SHARDED_BATCH}: "
+        f"{out['a']['trials_per_s']['sharded']:.1f} trials/s through optimize_sharded, "
+        f"{out['a']['trials_per_s']['twin']:.1f} through its optimize_vectorized twin (host clock; identical trial "
+        f"for trial); DTensor overhead {out['a']['overhead_s']:.3f} s over the timed window "
+        f"({out['a']['overhead_s'] / (SHARDED_TIMED / SHARDED_BATCH) * 1e3:.1f} ms a batch; the timed batches "
+        f"{', '.join(f'{x:.3f}' for x in runs['sharded']['batch_s'])} s, the twin's "
+        f"{', '.join(f'{x:.3f}' for x in runs['twin']['batch_s'])}); device busy "
+        f"{out['a']['busy']:.4f} over one more warm batch ({wall_ms:.1f} ms wall, {busy_ms:.1f} ms busy, {kernels} "
+        f"kernels); placements and local shapes {layout}; best {out['a']['best']:.6f}"
+    )
+
+    # (b) the two-rank pod, and its one-process twin at 1 x 1.
+    import optuna_tpu_torch as ot
+
+    ranks = pod.run()
+    verbosity = ot.logging.get_verbosity()
+    ot.logging.set_verbosity(ot.logging.ERROR)  # the poison's containment logs a warning a step
+    try:
+        twin, _, _, twin_s = pod_study(mesh, 0)
+    finally:
+        ot.logging.set_verbosity(verbosity)
+    lead = ranks[0]
+    if ranks[1]["rows"] != lead["rows"] or ranks[1]["logs"] != lead["logs"]:
+        fail("phase 36(b): the two ranks' studies or merged logs differ")
+    if any(r["widths"] != pod_widths() for r in ranks):
+        fail(f"phase 36(b): dispatch widths {[r['widths'] for r in ranks]}, expected {pod_widths()} on both ranks")
+    poison = POD_POISON[0] * POD_BATCH + POD_POISON[1]
+    states = {number: state for number, state, _, _ in lead["rows"]}
+    if sorted(states) != list(range(POD_BATCH * POD_BATCHES)) or [n for n, st in states.items() if st != "COMPLETE"] != [
+        poison
+    ] or states[poison] != "FAIL":
+        fail(f"phase 36(b): states {states}, expected trial {poison} FAIL and every other trial COMPLETE once")
+    twin_rows = trial_rows(twin)
+    if len(twin_rows) != len(lead["rows"]):
+        fail(f"phase 36(b): the twin has {len(twin_rows)} trials, the pod {len(lead['rows'])}")
+    worst = 0.0
+    for (n, st, params, values), (tn, tst, tparams, tvalues) in zip(lead["rows"], twin_rows):
+        rel = 0.0 if values is None or tvalues is None else abs(values[0] - tvalues[0]) / abs(tvalues[0])
+        worst = max(worst, rel)
+        if (n, st, params) != (tn, tst, tparams) or (values is None) != (tvalues is None) or rel > POD_VALUE_RTOL:
+            fail(f"phase 36(b): trial {n} of the pod {st} {params} {values}, of the 1 x 1 twin {tst} {tparams} {tvalues}")
+    if any(r["launches"] for r in ranks):
+        fail(f"phase 36(b): the pod's ranks launched kernels of the repo: {[r['launches'] for r in ranks]}")
+    out["b"] = {"seconds": [r["seconds"] for r in ranks], "twin_s": twin_s, "worst_rel": worst}
+    dist.destroy_process_group()
+    out["s"] = time.perf_counter() - t_start
+    print(
+        f"phase 36(b), a two-rank pod on one card ({gpu}): mesh {{'trials': 2, 'model': 1}} over gloo, "
+        f"JournalStorage(IciJournalBackend()), {POD_BATCHES} batches of {POD_BATCH}, poison at trial {poison}: "
+        f"{out['b']['seconds'][0]:.3f} / {out['b']['seconds'][1]:.3f} s on ranks 0 / 1, the 1 x 1 twin "
+        f"{twin_s:.3f} s; widths {lead['widths']}; only trial {poison} FAIL; {len(lead['logs'])} journal ops, equal "
+        f"on both ranks; values against the twin within {worst:.3e} (relative); phase 36 {out['s']:.1f} s"
+    )
+    return out
 
 def states_of(study) -> dict:
     counts: dict = {}
@@ -4452,6 +4795,7 @@ def main() -> None:
     gpu = gpu_line()
     device = torch.device("cuda", 0)
     twins = CpuTwins()
+    pod = PodRanks()
     t_start = time.perf_counter()
 
     phase_build()
@@ -4565,6 +4909,12 @@ def main() -> None:
     serve = phase_serve(k1_count)
     serve_counts = counts()
     print(f"serve phase 35: {serve['s']:.1f} s, set-up and checks included")
+    reset()
+    sharded = phase_sharded(pod, gpu)
+    sharded_counts = counts()
+    print(f"sharded phase 36: {sharded['s']:.1f} s, set-up and checks included")
+    if any(sharded_counts.values()):
+        fail(f"phase 36 launched kernels of the repo: {sharded_counts}")
     if serve_counts["matern52_gram"] != serve["k1"] or any(v for k, v in serve_counts.items() if k != "matern52_gram"):
         fail(f"phase 35 launched {serve_counts}, expected K1 {serve['k1']} and no other kernel")
     if control_counts["matern52_gram"] != control["k1"] or any(v for k, v in control_counts.items() if k != "matern52_gram"):
@@ -4628,7 +4978,7 @@ def main() -> None:
         fail(f"wfg_stack launched {hssp_counts['wfg_stack']} times on the HSSP path, expected {HSSP_K} (one a greedy "
              f"step), and {launches['wfg_stack']} in all")
     paths = (gp, nsga, hv, scan, motpe_counts, runtime, hssp_counts, nsga3_counts, motpe3_counts, cma_counts, gp_rest,
-             batch_counts, gp_batch_counts, resume_counts, analysis_counts, control_counts, serve_counts)
+             batch_counts, gp_batch_counts, resume_counts, analysis_counts, control_counts, serve_counts, sharded_counts)
     per_node = sum(c["wfg_limit_filter"] for c in paths)
     if per_node:
         fail(f"the one-node WFG kernel launched {per_node} times on the paths: the stack kernel runs every node")
@@ -4658,7 +5008,7 @@ def main() -> None:
         f"s/trial ({running[2]['qlogei_ask_s']:.3f} s a qLogEI ask), qLogEI {running['exact']['s']:.3f} / {running['sparse']['s']:.3f} s/ask, constrained "
         f"{float(np.median(constrained[1000]['s'])):.3f} / {float(np.median(constrained[4000]['s'])):.3f} s/ask, "
         f"LogEHVI ZDT1 {float(np.median(mo_gp['ZDT1']['s'])):.3f} / DTLZ2 {float(np.median(mo_gp['DTLZ2']['s'])):.3f} "
-        f"s/ask, config #5 {mlp5['trials_per_s'][0]:.1f} trials/s ({mlp5['gflops']:.1f} GFLOP/s in a "
+        f"s/ask, config #5 {mlp5['trials_per_s']:.1f} trials/s ({mlp5['gflops']:.1f} GFLOP/s in a "
         f"{mlp5['batch_ms']:.3f} ms batch), GP batches of {GP_BATCH} {gp_batches['s'] / GP_BATCHES:.3f} s, "
         f"scan resume {resume['runs_s'][1]:.3f} s (restore {resume['restore_s']:.4f} s), "
         f"fANOVA at n={ANALYSIS_HISTORY} {analysis['importance']['fANOVA']['card_s'][1] * 1e3:.1f} ms (CPU torch "
@@ -4669,6 +5019,8 @@ def main() -> None:
         f"{control['per_chunk']['off']:.3f} with every hook off (gp.densify {control['verdict']}), "
         f"served GP {serve['coalesced']['ms_per_trial']:.1f} ms a trial at {SERVE_CLIENTS} clients (coalesce width "
         f"max {serve['coalesced']['width_max']}), "
+        f"config #5 sharded {sharded['a']['trials_per_s']['sharded']:.1f} trials/s (twin "
+        f"{sharded['a']['trials_per_s']['twin']:.1f}), "
         f"total {time.perf_counter() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": rows}))

@@ -541,9 +541,9 @@ def suppress(study: "Study") -> None:
     """Mark ``study`` so :func:`maybe_report`/:func:`flush` publish nothing
     for it even while the reporter is globally enabled. For loops whose
     storage-write sequence must stay deterministic across processes (the
-    sharded tier's lockstep run, ROADMAP A8a, where a wall-clock
-    rate-limited publish in one process would desynchronize the exchange
-    count). Undo by clearing ``study.__dict__['_health_reporter']``."""
+    sharded tier's lockstep pod, ``parallel.sharded.optimize_sharded``,
+    where a wall-clock rate-limited publish on one rank would
+    desynchronize the exchange count). Undo by clearing ``study.__dict__['_health_reporter']``."""
     study.__dict__["_health_reporter"] = _SUPPRESSED
 
 

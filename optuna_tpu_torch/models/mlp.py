@@ -12,12 +12,16 @@ leading trial axis (``w1`` of shape ``(B, in, hidden)``, ``b1`` of shape
 trained by one autograd call over the sum of the per-trial losses, which
 gives each trial its own gradient, since the trials share no parameter:
 the counterpart of the reference's ``jax.vmap(value_and_grad(...))``.
-:func:`train_scaled_batch` is config #5's batched objective.
+:func:`train_scaled_batch` is config #5's batched objective; with
+:func:`cross_entropy_onehot` for its loss it is the same training in the
+form ``bench.py``'s sharded loop writes it (one-hot labels,
+``logsumexp``), in operations that also run on ``DTensor`` s, so that one
+function serves a ``ShardedObjective`` and its mesh-less twin.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -74,20 +78,31 @@ def _per_param(lr: torch.Tensor, p: torch.Tensor, batched: bool) -> torch.Tensor
     return lr.reshape(lr.shape + (1,) * (p.dim() - lr.dim())) if batched else lr
 
 
+def cross_entropy_onehot(logits: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy against one-hot label rows, ``logsumexp`` less the
+    labels' logits (``bench.py::_sharded_mlp_objective``): a scalar, or one
+    value a trial. Also for ``DTensor`` s, which have no ``gather`` rule."""
+    return (torch.logsumexp(logits, dim=-1) - (logits * onehot).sum(dim=-1)).mean(dim=-1)
+
+
+Loss = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def sgd_step(
-    params: MLPParams, x: torch.Tensor, y: torch.Tensor, lr: "torch.Tensor | float"
+    params: MLPParams, x: torch.Tensor, y: torch.Tensor, lr: "torch.Tensor | float", loss: Loss = cross_entropy
 ) -> tuple[MLPParams, torch.Tensor]:
-    """One full-batch SGD step; returns the new parameters and the loss
-    before the step (as the reference's ``value_and_grad``)."""
+    """One full-batch SGD step on ``loss(logits, y)``; returns the new
+    parameters and the loss before the step (as the reference's
+    ``value_and_grad``)."""
     lr = torch.as_tensor(lr, dtype=params.w1.dtype, device=params.w1.device)
     batched = params.w1.dim() == 3
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in params]
-        loss = cross_entropy(mlp_forward(MLPParams(*leaves), x), y)
-        grads = torch.autograd.grad(loss.sum(), leaves)
+        value = loss(mlp_forward(MLPParams(*leaves), x), y)
+        grads = torch.autograd.grad(value.sum(), leaves)
     with torch.no_grad():
         new = MLPParams(*(p - _per_param(lr, p, batched) * g for p, g in zip(leaves, grads)))
-    return new, loss.detach()
+    return new, value.detach()
 
 
 def train_mlp(
@@ -96,13 +111,14 @@ def train_mlp(
     y: torch.Tensor,
     lr: "torch.Tensor | float",
     n_steps: int = 20,
+    loss: Loss = cross_entropy,
 ) -> tuple[MLPParams, torch.Tensor]:
     """``n_steps`` of full-batch SGD; returns the parameters and the loss
     of the last step (before its update), as the reference's scan does."""
-    loss = None
+    value = None
     for _ in range(n_steps):
-        params, loss = sgd_step(params, x, y, lr)
-    return params, loss
+        params, value = sgd_step(params, x, y, lr, loss)
+    return params, value
 
 
 def train_scaled_batch(
@@ -112,12 +128,19 @@ def train_scaled_batch(
     lr: torch.Tensor,
     init_scale: torch.Tensor,
     n_steps: int,
+    loss: Loss = cross_entropy,
 ) -> torch.Tensor:
     """Config #5's batched objective (``bench.py::run_ours_mlp_vectorized``):
     trial ``i`` trains ``base * init_scale[i]`` for ``n_steps`` SGD steps at
-    rate ``lr[i]`` and returns its final loss. Shape ``(B,)``."""
+    rate ``lr[i]`` and returns its final loss. Shape ``(B,)``.
+
+    With ``loss=cross_entropy_onehot`` and one-hot rows for ``y`` it is the
+    sharded loop's objective (``bench.py::_sharded_mlp_objective``); every
+    operand may then be a ``DTensor`` on one mesh (``base`` sharded by
+    partition rules, ``lr``/``init_scale`` along the batch), and the
+    operations are the same either way."""
     scale = init_scale.to(base.w1.dtype)
     start = MLPParams(*(p.unsqueeze(0) * scale.reshape((-1,) + (1,) * p.dim()) for p in base))
-    params, _ = train_mlp(start, x, y, lr.to(base.w1.dtype), n_steps)
+    params, _ = train_mlp(start, x, y, lr.to(base.w1.dtype), n_steps, loss)
     with torch.no_grad():
-        return cross_entropy(mlp_forward(params, x), y)
+        return loss(mlp_forward(params, x), y)

@@ -34,8 +34,8 @@ tells, and layer 3 reaps what it leaves.
 Where the card changes things:
 
 * **One host read a dispatch.** A torch call returns before the card has
-  finished, as a jit call does. ``_realize`` stacks the values and the
-  finite mask into one tensor and reads it with one ``.cpu()``, the
+  finished, as a jit call does. ``_read_to_host`` stacks the values and
+  the finite mask into one tensor and reads it with one ``.cpu()``, the
   dispatch's only synchronizing call; the deadline watchdog runs the call
   and that read, so it bounds the card's work and not only the launch.
 * **Out of memory** on the card is ``torch.OutOfMemoryError``
@@ -55,6 +55,21 @@ Where the card changes things:
   ask is re-raised too, not degraded to independent sampling. This is the
   one difference from the reference, and it is the one that
   ``GuardedSampler`` makes.
+* **A mesh is ranks, not devices.** With a ``mesh`` the batch is padded to
+  a multiple of the ``trials`` shards (the last row repeated), OOM halving
+  floors at one row a shard, and ``batch_size`` defaults to the shard
+  count, as in the reference. On several ranks each dispatch is one
+  :class:`~optuna_tpu_torch.parallel._mesh.MeshDispatch`: every rank
+  uploads, evaluates and reads back its rows and the ranks gather them
+  with a status each, so a failed upload, a poison row, an OOM or a
+  timed-out evaluation on one rank becomes the same error on every rank,
+  and every rank takes the same containment branch.
+  ``dispatch_deadline_s`` then bounds each rank's evaluation of its rows,
+  inside the gather, so no rank abandons a collective. Rank 0 broadcasts
+  each batch's packed columns first. Outside the lockstep pod, rank 0 alone
+  runs this loop and every other rank runs :meth:`_follow`, which
+  evaluates what rank 0 dispatches until rank 0's run ends; a follower
+  passes over only the agreed errors, and raises any other.
 * **An abandoned dispatch keeps running.** When the deadline trips, the
   watchdog thread is abandoned (a daemon) and may keep launching kernels on
   the card while the loop goes on, as the reference's keeps dispatching to
@@ -203,6 +218,23 @@ def build_non_finite_guard(fn: Callable, *, clip: bool) -> Callable:
     return _guard
 
 
+def _read_to_host(values: torch.Tensor, finite: torch.Tensor | None = None) -> tuple[np.ndarray, np.ndarray | None]:
+    """A dispatch's one host read: the values (and the finite mask) stacked
+    into one tensor and read with one ``.cpu()``, the dispatch's only
+    synchronizing call. Returns ``(values, finite)`` as host arrays, the
+    values in their shape and ``finite`` a bool vector (``None`` without
+    a mask)."""
+    b = values.shape[0]
+    dtype = values.dtype if values.is_floating_point() else torch.float32
+    cols = [values.reshape(b, -1).to(dtype)]
+    if finite is not None:
+        cols.append(finite.reshape(b, 1).to(dtype))
+    host = torch.cat(cols, dim=1).detach().cpu().numpy()
+    if finite is None:
+        return host.reshape(tuple(values.shape)), None
+    return host[:, :-1].reshape(tuple(values.shape)), host[:, -1] != 0
+
+
 def _is_oom_error(err: BaseException) -> bool:
     """The card's allocation failure by type (``torch.OutOfMemoryError``),
     or any error by the reference's text rule (``RESOURCE_EXHAUSTED``, or
@@ -215,7 +247,9 @@ def _is_oom_error(err: BaseException) -> bool:
 
 
 def _is_uncontained_device_fault(err: BaseException) -> bool:
-    return is_device_fault(err) and not _is_oom_error(err)
+    from optuna_tpu_torch.parallel._mesh import ShardDeviceFault
+
+    return isinstance(err, ShardDeviceFault) or (is_device_fault(err) and not _is_oom_error(err))
 
 
 class ResilientBatchExecutor:
@@ -223,8 +257,10 @@ class ResilientBatchExecutor:
 
     One instance = one ``run`` loop over a study; the guarded objective
     wrapper is memoized on the objective itself, so executors are cheap to
-    construct per call. ``device`` (None: the card) is where the packed
-    parameters go.
+    construct per call. ``device`` (None: the card, or the mesh's device) is
+    where the packed parameters go. On a follower rank of a multi-rank
+    ``mesh`` (see the module docstring) ``study`` is not read and may be
+    None.
     """
 
     def __init__(
@@ -245,9 +281,8 @@ class ResilientBatchExecutor:
         clock: Callable[[], float] = time.monotonic,
         device: "str | torch.device | None" = None,
     ) -> None:
-        from optuna_tpu_torch.parallel.vectorized import check_no_mesh
+        from optuna_tpu_torch.parallel import _mesh
 
-        check_no_mesh(mesh)
         if non_finite not in NON_FINITE_POLICIES:
             raise ValueError(
                 f"non_finite must be one of {sorted(NON_FINITE_POLICIES)}; "
@@ -257,7 +292,7 @@ class ResilientBatchExecutor:
             # Inherit the study's declared policy: a study built with
             # sampler_fallback='raise' asked for loud sampler failures.
             # Unguarded studies default to 'independent'.
-            fallback = getattr(study.sampler, "fallback", None)
+            fallback = getattr(getattr(study, "sampler", None), "fallback", None)
             if fallback not in FALLBACK_POLICIES:
                 fallback = "independent"
         if fallback not in FALLBACK_POLICIES:
@@ -270,7 +305,12 @@ class ResilientBatchExecutor:
             raise ValueError(f"batch_size must be >= 1; got {batch_size}.")
         self._study = study
         self._objective = objective
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        # The batch is sharded over the batch axis only: one row a shard is
+        # the narrowest dispatch every rank has rows of.
+        self._n_dev = _mesh.n_batch_shards(mesh, batch_axis) if mesh is not None else 1
+        self._role = _mesh.role(mesh, pod=False)
+        self._device = resolve_device(device) if device is not None or mesh is None else _mesh.mesh_device(mesh)
         self._callbacks = list(callbacks or ())
         self._non_finite = non_finite
         self._fallback = fallback
@@ -284,7 +324,7 @@ class ResilientBatchExecutor:
         self._strike_budget = max(2, self._policy.max_attempts)
         self._deadline_s = dispatch_deadline_s
         self._clock = clock
-        self._batch_size = 8 if batch_size is None else batch_size
+        self._batch_size = (self._n_dev if mesh is not None else 8) if batch_size is None else batch_size
         self._requested_batch_size = self._batch_size
         self._grow_streak = 0
         # Clean full-width batches needed for one doubling back toward the
@@ -308,7 +348,50 @@ class ResilientBatchExecutor:
 
     def run(self, n_trials: int) -> None:
         """Advance ``n_trials`` trials in batches, containing per-batch
-        faults so that no survivable failure leaves a trial RUNNING."""
+        faults so that no survivable failure leaves a trial RUNNING. On a
+        follower rank, evaluate rank 0's dispatches until its run ends."""
+        if self._role == "follower":
+            self._follow()
+            return
+        if self._role != "leader":
+            self._run(n_trials)
+            return
+        from optuna_tpu_torch.parallel import _mesh
+
+        # The followers wait in a broadcast: end it on a return and on an
+        # error. A worker's death (BaseException) sends nothing, since the
+        # followers die with it (the chaos kit kills every rank at one
+        # dispatch); a rank that dies alone fails the others at the
+        # process group's timeout.
+        try:
+            self._run(n_trials)
+        except Exception as err:
+            _mesh.send_stop(f"{type(err).__name__}: {err}"[:500])
+            raise
+        _mesh.send_stop(None)
+
+    def _follow(self) -> None:
+        """A follower rank's loop: evaluate each batch rank 0 broadcasts,
+        in step with its dispatches, until it sends the stop. A failed
+        dispatch is rank 0's to contain (it raised the same agreed error
+        there); what it dispatches next arrives here next."""
+        from optuna_tpu_torch.parallel import _mesh
+
+        while True:
+            kind, payload = _mesh.receive()
+            if kind == "stop":
+                if payload is not None:
+                    raise RuntimeError(f"rank 0's run ended with {payload}")
+                return
+            try:
+                self._dispatch(payload)
+            except (_mesh.ShardDispatchError, torch.OutOfMemoryError, DispatchTimeoutError):
+                # Agreed errors: rank 0 raised the same one and contains it;
+                # a device fault comes back as the stop's error. Anything
+                # else left the ranks out of step, so it is raised.
+                continue
+
+    def _run(self, n_trials: int) -> None:
         study = self._study
         if study._thread_local.in_optimize_loop:
             # A nested run() from a callback would clobber the outer loop's
@@ -597,11 +680,20 @@ class ResilientBatchExecutor:
             self._tell_batch(trials, values, finite)
 
     def _eval(self, trials: list[Trial]) -> tuple[np.ndarray, np.ndarray]:
+        from optuna_tpu_torch.parallel import _mesh
         from optuna_tpu_torch.parallel.vectorized import _pack_params
 
         b = len(trials)
         packed = _pack_params(trials, self._objective.search_space)
-        values, finite = self._dispatch(self._upload(packed))
+        if self._mesh is not None:
+            # The narrowest padding every shard has rows of: the last row
+            # repeated up to a multiple of the shard count.
+            b_eval = -(-b // self._n_dev) * self._n_dev
+            if b_eval > b:
+                packed = {k: np.concatenate([v, np.repeat(v[-1:], b_eval - b, axis=0)]) for k, v in packed.items()}
+            packed = _mesh.share_batch(packed)
+        values, finite = self._dispatch(packed)
+        values, finite = values[:b], finite[:b]
         # Device-stat tap: the quarantine count from the finite mask the
         # dispatch already read. Taken per completed dispatch, so bisection
         # and halving sum to one count per quarantined trial; 0 under
@@ -619,34 +711,41 @@ class ResilientBatchExecutor:
             self._timeout_width = 0
         return values, finite
 
-    def _upload(self, packed: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """The packed columns on the device. To the card each goes through
-        pinned host memory with a non-blocking copy, so the upload makes no
-        synchronizing call and ``_realize``'s read stays the dispatch's
-        only one."""
+    def _upload(self, args: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Host columns on the device. To the card each goes through pinned
+        host memory with a non-blocking copy, so the upload makes no
+        synchronizing call and the host read stays the dispatch's only
+        one."""
         if self._device.type != "cuda":
-            return {k: torch.from_numpy(v).to(self._device) for k, v in packed.items()}
-        return {k: torch.from_numpy(v).pin_memory().to(self._device, non_blocking=True) for k, v in packed.items()}
+            return {k: v.to(self._device) for k, v in args.items()}
+        return {k: v.pin_memory().to(self._device, non_blocking=True) for k, v in args.items()}
 
-    def _realize(self, args: dict[str, torch.Tensor]) -> tuple[np.ndarray, np.ndarray]:
-        """Call the guarded objective and read its values and finite mask
-        with one host read: both stacked into one tensor, one ``.cpu()``.
-        The call returns before the card has finished; the read waits for
-        it, so the deadline (around this whole method) bounds the device
-        work."""
-        values, finite = self._guarded(args)
-        b = finite.shape[0]
-        dtype = values.dtype if values.is_floating_point() else torch.float32
-        both = torch.cat([values.reshape(b, -1).to(dtype), finite.reshape(b, 1).to(dtype)], dim=1)
-        host = both.cpu().numpy()  # the dispatch's one host read
-        return host[:, :-1].reshape(tuple(values.shape)), host[:, -1] != 0
+    def _realize(self, packed: dict[str, np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+        """Upload the packed columns, call the guarded objective and read
+        its values and finite mask with :func:`_read_to_host`. The call
+        returns before the card has finished; the read waits for it, so the
+        deadline (around this whole method) bounds the device work. Over a
+        mesh the upload and the read run inside the
+        :class:`~optuna_tpu_torch.parallel._mesh.MeshDispatch`'s status
+        boundary, on this rank's rows."""
+        host = {k: torch.from_numpy(v) for k, v in packed.items()}
+        if self._mesh is not None:
+            return self._guarded(host, upload=self._upload)
+        return _read_to_host(*self._guarded(self._upload(host)))
 
-    def _dispatch(self, args: dict[str, torch.Tensor]) -> tuple[np.ndarray, np.ndarray]:
+    def _dispatch(self, packed: dict[str, np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+        from optuna_tpu_torch.parallel import _mesh
+
         with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"), \
                 flight.span("dispatch"):
             if self._deadline_s is None:
-                return self._realize(args)
-            return run_with_deadline(lambda: self._realize(args), self._deadline_s, self._clock)
+                return self._realize(packed)
+            if self._mesh is not None and _mesh.world_size() > 1:
+                # Each rank's rows are bounded inside the gather; the
+                # collectives themselves are never abandoned.
+                with _mesh.deadline_scope(self._deadline_s, self._clock):
+                    return self._realize(packed)
+            return run_with_deadline(lambda: self._realize(packed), self._deadline_s, self._clock)
 
     def _contain(self, trials: list[Trial], err: Exception) -> None:
         """A dispatch over ``trials`` raised ``err``: salvage what we can,
@@ -655,7 +754,7 @@ class ResilientBatchExecutor:
         if _is_uncontained_device_fault(err):
             self._fail_trials(trials, f"device fault in the dispatch: {err!r}")
             raise err
-        if _is_oom_error(err) and b > 1:
+        if _is_oom_error(err) and b > self._n_dev:
             # Halving is bounded by log2(b) re-dispatches by construction;
             # the attempt counter (reset by every completed dispatch) only
             # paces the backoff.
@@ -668,8 +767,9 @@ class ResilientBatchExecutor:
             if b >= self._batch_size:
                 # Only a full-width dispatch is capacity evidence: an OOM in
                 # a bisection sub-dispatch must not clamp the study's batch
-                # size below a width the device just ran.
-                self._batch_size = max(1, b // 2)
+                # size below a width the device just ran. Rounded down to a
+                # multiple of the shard count, which padding would restore.
+                self._batch_size = max(self._n_dev, (b // 2) // self._n_dev * self._n_dev)
                 self._grow_streak = 0
             self._policy.backoff(
                 self._oom_attempts,
@@ -681,7 +781,7 @@ class ResilientBatchExecutor:
             )
             self._run_splits([trials[: (b + 1) // 2], trials[(b + 1) // 2 :]])
             return
-        # An OOM-shaped error at width 1 falls through to the generic
+        # An OOM-shaped error at one row a shard falls through to the generic
         # containment: the text rule can misfire on a poison trial whose
         # error merely looks OOM-shaped, and leaf containment keeps the
         # healthy trials' salvage either way.
@@ -701,8 +801,7 @@ class ResilientBatchExecutor:
                 f"dispatch of {b} trials raised {err!r}; bisecting to isolate "
                 "the poison trial(s)."
             )
-            mid = b // 2
-            self._run_splits([trials[:mid], trials[mid:]])
+            self._run_splits(self._split_for_bisection(trials))
             return
         self._fail_trials(trials, f"batch dispatch raised: {err!r}")
         if self._bisect:
@@ -716,6 +815,13 @@ class ResilientBatchExecutor:
             _logger.warning(f"trial {trials[0].number} quarantined after dispatch error: {err!r}")
             return
         raise err
+
+    def _split_for_bisection(self, trials: list[Trial]) -> list[list[Trial]]:
+        """How a failed (non-OOM) dispatch is split for containment: binary
+        bisection here; the sharded executor splits along shard groups
+        first."""
+        mid = len(trials) // 2
+        return [trials[:mid], trials[mid:]]
 
     def _run_splits(self, groups: list[list[Trial]]) -> None:
         """Run every group of a failed dispatch, containing the later groups

@@ -10,9 +10,12 @@ see ordinary trials. This is the engine behind BASELINE config #5 (the
 This module owns the objective side (packing, the memoized dispatch
 wrappers); the fault-tolerant dispatch loop is
 :class:`~optuna_tpu_torch.parallel.executor.ResilientBatchExecutor`, to
-which :func:`optimize_vectorized` delegates. The reference's pod tier (a
-``{'trials', 'model'}`` mesh, ``ShardedObjective``) waits for ROADMAP A8a:
-on one card the mesh is 1 x 1, and ``mesh`` must be None.
+which :func:`optimize_vectorized` delegates. With a ``mesh`` (a
+``torch.distributed`` ``DeviceMesh``; see
+:mod:`optuna_tpu_torch.parallel.sharded`), a dispatch wrapper evaluates
+this rank's rows of the batch and gathers the rest from the other ranks
+(:class:`~optuna_tpu_torch.parallel._mesh.MeshDispatch`); a plain
+:class:`VectorizedObjective` replicates across any other mesh axis.
 """
 
 from __future__ import annotations
@@ -28,18 +31,6 @@ from optuna_tpu_torch.trial._trial import Trial
 if TYPE_CHECKING:
     from optuna_tpu_torch.storages._retry import RetryPolicy
     from optuna_tpu_torch.study.study import Study
-
-_SHARDED_TIER = (
-    "a mesh is the sharded tier (parallel/sharded.py, parallel/ici_journal.py), which "
-    "optuna_tpu_torch does not port yet (ROADMAP.md item A8a); pass mesh=None"
-)
-
-
-def check_no_mesh(mesh: Any) -> None:
-    """Raise ``NotImplementedError`` for any ``mesh`` but None."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED_TIER)
-
 
 class VectorizedObjective:
     """A batched objective over an explicit search space.
@@ -78,9 +69,10 @@ class VectorizedObjective:
         return wrapper
 
     def compiled(self, mesh: Any = None, batch_axis: str = "trials") -> Callable:
-        """The plain dispatch wrapper for ``fn``, built once per key."""
-        check_no_mesh(mesh)
-        return self._memoized((mesh, batch_axis), lambda: self.fn)
+        """The plain dispatch wrapper for ``fn``, built once per key: ``fn``
+        itself, or over a ``mesh`` a
+        :class:`~optuna_tpu_torch.parallel._mesh.MeshDispatch` of it."""
+        return self._memoized((mesh, batch_axis), lambda: _over_mesh(self.fn, mesh, batch_axis, guarded=False))
 
     def guarded(self, mesh: Any = None, batch_axis: str = "trials", non_finite: str = "fail") -> Callable:
         """The executor's wrapper: returns ``(values, finite_mask)`` with the
@@ -90,11 +82,19 @@ class VectorizedObjective:
         differs."""
         from optuna_tpu_torch.parallel.executor import build_non_finite_guard
 
-        check_no_mesh(mesh)
         clip = non_finite == "clip"
         return self._memoized(
-            (mesh, batch_axis, "guarded", clip), lambda: build_non_finite_guard(self.fn, clip=clip)
+            (mesh, batch_axis, "guarded", clip),
+            lambda: _over_mesh(build_non_finite_guard(self.fn, clip=clip), mesh, batch_axis, guarded=True),
         )
+
+
+def _over_mesh(fn: Callable, mesh: Any, batch_axis: str, *, guarded: bool) -> Callable:
+    if mesh is None:
+        return fn
+    from optuna_tpu_torch.parallel._mesh import MeshDispatch
+
+    return MeshDispatch(fn, mesh, batch_axis, guarded=guarded)
 
 
 def _pack_params(trials: Sequence[Trial], space: dict[str, BaseDistribution]) -> dict[str, np.ndarray]:
@@ -129,9 +129,15 @@ def optimize_vectorized(
     dispatch of the objective a batch, fault-tolerantly.
 
     ``device`` is where the packed parameters go and the objective runs:
-    ``None`` is the card (and raises where there is none), ``"cpu"`` the
-    plain PyTorch path. ``mesh`` must be None (the sharded tier is ROADMAP
-    A8a). Execution is delegated to
+    ``None`` is the card (and raises where there is none; with a ``mesh``,
+    the mesh's device), ``"cpu"`` the plain PyTorch path. A ``mesh`` (a
+    ``DeviceMesh`` with a ``batch_axis`` dimension, e.g. a 1-D ``trials``
+    mesh) shards each batch's rows over that axis: on several ranks, rank 0
+    runs the sampler and the storage and broadcasts each batch, and every
+    other rank, calling this function alike, evaluates its rows until rank
+    0's run ends (see :mod:`optuna_tpu_torch.parallel.sharded`); ``study``
+    is not read there. ``batch_size`` defaults to the shard count with a
+    mesh. Execution is delegated to
     :class:`~optuna_tpu_torch.parallel.executor.ResilientBatchExecutor`:
     ``non_finite`` picks the NaN/Inf quarantine policy
     (``'fail'``/``'raise'``/``'clip'``), ``fallback`` the sampler-fault

@@ -78,10 +78,10 @@ class _ReplayResult:
     Allocation order is part of the replay contract: ``next_study_id`` /
     ``next_trial_id`` advance monotonically in merged-log order, so any
     worker that has replayed an op stream can derive what ids a peer's
-    creates were assigned without having issued them. The reference's pod
-    follower (``PodFollowerStorage``, ROADMAP A8a for the port) leans on
-    exactly this: it mirrors the leader's writes by syncing the merged
-    journal and reading the newest ids/states off this replay state.
+    creates were assigned without having issued them. The pod follower
+    (``parallel.sharded.PodFollowerStorage``) leans on exactly this: it
+    mirrors the leader's writes by syncing the merged journal and reading
+    the newest ids/states off this replay state.
     """
 
     def __init__(self) -> None:

@@ -7,8 +7,8 @@ This carries ``create_study``, ``load_study``, ``delete_study``,
 ``parallel.optimize_vectorized``), ``Study.optimize_scan``,
 ``trials_dataframe``, ``sampler_fallback=``, ``autopilot=``, the
 observability exports (``telemetry_snapshot``, ``health_report``,
-``trace_snapshot``) and the ``best_*`` accessors; the sharded loop waits
-for the sharded tier (ROADMAP A8a).
+``trace_snapshot``), the ``best_*`` accessors and
+``Study.optimize_sharded`` (the sharded tier over a ``DeviceMesh``).
 
 Parity target: ``optuna/study/study.py`` (``Study:67``, ``create_study:1203``,
 ``load_study:1358``, ``delete_study:1447``, ``copy_study:1510``,
@@ -257,6 +257,21 @@ class Study:
         from optuna_tpu_torch.parallel.scan_loop import optimize_scan
 
         optimize_scan(self, objective, n_trials, **kwargs)
+
+    def optimize_sharded(self, objective: Any, n_trials: int, **kwargs: Any) -> None:
+        """Run ``n_trials`` across a 2-D ``{'trials', 'model'}``
+        ``DeviceMesh`` (see
+        :func:`optuna_tpu_torch.parallel.sharded.optimize_sharded`): the
+        trial batch shards along the ``trials`` axis, a
+        :class:`~optuna_tpu_torch.parallel.sharded.ShardedObjective`'s model
+        along its regex partition rules on the ``model`` axis, with the
+        executor's containment operating per shard and trial sync between
+        ranks riding the ICI journal's all-gather. On one rank it is trial
+        for trial :func:`~optuna_tpu_torch.parallel.vectorized.
+        optimize_vectorized` on the same seeded study."""
+        from optuna_tpu_torch.parallel.sharded import optimize_sharded
+
+        optimize_sharded(self, objective, n_trials, **kwargs)
 
     def ask(self, fixed_distributions: dict[str, BaseDistribution] | None = None) -> Trial:
         """Create a new (or claim a WAITING) trial (reference ``study.py:527``)."""

@@ -49,7 +49,13 @@
   N fleet hubs over one storage mounted so, and :class:`SocketHubFleet`,
   its real-socket twin.
 
-The pod chaos of the reference waits for ROADMAP A8a.
+* Pod chaos (:mod:`optuna_tpu_torch.parallel.sharded` and
+  :mod:`~optuna_tpu_torch.parallel.ici_journal` are the layers under
+  test): :class:`FakePodBus`, N ``IciJournalBackend`` s whose all-gather
+  rendezvous at a thread barrier (the lockstep of a real collective), and
+  :class:`ShardChaosPlan` / :func:`shard_chaos_plan`, NaN rows on one shard
+  and a killed worker in one sharded study, with the outcome the
+  acceptance test asserts.
 
 Typical chaos test::
 
@@ -423,6 +429,128 @@ class FaultySampler:
         return f"FaultySampler({self._inner})"
 
 
+# ------------------------------------------------------------- pod-bus chaos
+
+
+class FakePodBus:
+    """Lockstep all-gather across N in-process ranks (threads): the
+    multi-rank seam of :class:`~optuna_tpu_torch.parallel.ici_journal.
+    IciJournalBackend` driven without a process group.
+
+    Gathers rendezvous at a barrier exactly like a collective: every worker
+    must reach ``exchange()`` the same number of times or the round times
+    out, the discipline real collectives impose. Pod scenarios
+    (``optimize_sharded``'s leader/follower lockstep, a rank dying
+    mid-study) are injectable faults of the kit, not test-local plumbing.
+    """
+
+    def __init__(self, n_workers: int, buffer_bytes: int = 1 << 16) -> None:
+        from optuna_tpu_torch.parallel.ici_journal import IciJournalBackend
+
+        self.n = n_workers
+        self.workers = [IciJournalBackend(buffer_bytes=buffer_bytes) for _ in range(n_workers)]
+        self._slots: list["np.ndarray | None"] = [None] * n_workers
+        self._barrier = threading.Barrier(n_workers, timeout=30)
+        for idx, worker in enumerate(self.workers):
+            worker._allgather = self._make_gather(idx)  # type: ignore[method-assign]
+
+    def _make_gather(self, idx: int):
+        def gather(buf: "np.ndarray") -> "np.ndarray":
+            self._slots[idx] = buf
+            self._barrier.wait()  # all buffers staged
+            out = np.stack([s for s in self._slots])  # rank order
+            self._barrier.wait()  # all workers copied out before reuse
+            return out
+
+        return gather
+
+    def lockstep(self, *fns) -> list:
+        """Run one callable per worker concurrently; re-raise any failure
+        (aborting the barrier so no peer hangs on a dead partner)."""
+        assert len(fns) == self.n
+        results: list = [None] * self.n
+        errors: list = [None] * self.n
+
+        def run(i: int) -> None:
+            try:
+                results[i] = fns[i]()
+            except BaseException as e:  # lockstep trampoline: a worker death (BaseException by design) must abort the barrier so peers fail fast instead of hanging; every error re-raises on the driving thread below
+                errors[i] = e
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        # Prefer the ROOT fault: an abort makes the bystanders fail with
+        # BrokenBarrierError, and re-raising a bystander's symptom would mask
+        # the injected fault whenever the failing worker has a higher index.
+        for e in errors:
+            if e is not None and not isinstance(e, threading.BrokenBarrierError):
+                raise e
+        for e in errors:
+            if e is not None:
+                raise e
+        return results
+
+    def step(self, per_worker_logs: list[list[dict]]) -> None:
+        """One exchange round: every worker appends its ops and reaches the
+        collective together."""
+
+        def work(worker, logs):
+            worker._pending.extend(logs)
+            worker.exchange()
+
+        self.lockstep(*[(lambda w=w, logs=logs: work(w, logs)) for w, logs in zip(self.workers, per_worker_logs)])
+
+
+@dataclass(frozen=True)
+class ShardChaosPlan:
+    """One deterministic chaos scenario for ``optimize_sharded``: NaN rows
+    owned by one trials shard, a worker killed mid-dispatch (its stale
+    health snapshot planted under a mesh-coordinate worker id), and the
+    doctor findings and containment outcome the acceptance test asserts:
+    the executable form of the FakePodBus row of
+    :data:`HEALTH_CHECK_CHAOS_MATRIX` and the ``shard.*`` rows of
+    :data:`DEVICE_STAT_CHAOS_MATRIX`.
+
+    Geometry: a ``{'trials': 4, 'model': 2}`` mesh with ``batch_size`` = 8,
+    two rows a shard, so ``nan_slots`` (0, 1) both land on shard t0 and the
+    other shards' rows stay clean. A test on fewer ranks passes its own
+    geometry (``ShardChaosPlan(mesh_trials=2, mesh_model=2, batch_size=4)``
+    keeps two rows a shard).
+    """
+
+    mesh_trials: int = 4
+    mesh_model: int = 2
+    batch_size: int = 8
+    n_trials: int = 24
+    nan_slots: Mapping[int, Sequence[int]] = field(default_factory=lambda: {0: (0, 1)})
+    # The LAST batch's dispatch: by then every trial of the budget has been
+    # created and suggested, so the survivor's drain (reaped clones and NaN
+    # retries, fixed_params pinned) re-runs the fault-free draw sequence
+    # and needs no fresh draws after the death.
+    kill_dispatch: int = 2
+    dead_worker_coord: str = "t0m0"
+    dead_worker_age_s: float = 3600.0
+    expected_findings: tuple[str, ...] = ("worker.dead",)
+
+    @property
+    def expected_quarantined(self) -> int:
+        return sum(len(slots) for slots in self.nan_slots.values())
+
+    @property
+    def dead_worker_id(self) -> str:
+        return f"chaos-deadhost-0-{self.dead_worker_coord}"
+
+
+def shard_chaos_plan() -> ShardChaosPlan:
+    """The default :class:`ShardChaosPlan`: two NaN rows on shard t0 of a
+    4 x 2 mesh, one killed worker at mesh coordinate t0m0."""
+    return ShardChaosPlan()
+
+
 # ----------------------------------------------------- device-dispatch chaos
 
 
@@ -470,7 +598,11 @@ class FaultyVectorizedObjective:
         poison (``lambda p: (p["x"] > 0.9).any()``) follows the poison trial
         through bisection instead of striking a fixed dispatch.
 
-    Faults strike before the wrapped objective runs. Reading the params for
+    Faults strike before the wrapped objective runs. Over a mesh (the
+    executor's dispatch passes ``upload``) a raise, an OOM or a hang strikes
+    in this rank's upload, inside the dispatch's status boundary, as a fault
+    of the objective would, so every rank agrees on it; a kill strikes at
+    once, on every rank. Reading the params for
     ``raise_when`` or ``nan_at`` is a host read of the card's tensors; the
     poisoned column goes back to the tensor's device.
     """
@@ -517,35 +649,55 @@ class FaultyVectorizedObjective:
 
         inner = self._inner.guarded(mesh, batch_axis, non_finite)
 
-        def _faulty(args: dict) -> Any:
+        def _faulty(args: dict, upload: Callable | None = None) -> Any:
             index = self.dispatches
             self.dispatches += 1
             width = int(next(iter(args.values())).shape[0]) if args else 0
             self.dispatch_widths.append(width)
             if index in self.kill_at:
                 raise SimulatedWorkerDeath(f"scheduled worker death at dispatch #{index}")
-            if index in self.oom_at or (self.oom_above is not None and width > self.oom_above):
-                raise FakeResourceExhaustedError(
-                    f"RESOURCE_EXHAUSTED: out of memory allocating a "
-                    f"{width}-wide dispatch (injected)"
-                )
-            if index in self.raise_at:
-                raise self.error_factory(index)
             positions = [p for p in self.nan_at.get(index, ()) if p < width]
+            host = None
             if self.raise_when is not None or positions:
                 host = {k: v.detach().cpu().numpy() for k, v in args.items()}
-                if self.raise_when is not None and self.raise_when(host):
-                    raise self.error_factory(index)
-            if index in self.hang_at:
-                time.sleep(self.hang_s)
+            strike = self._strike(index, width, host)
             if positions:
                 name = next(k for k, v in host.items() if np.issubdtype(v.dtype, np.floating))
                 column = host[name].copy()
                 column[positions] = np.nan
                 args = {**args, name: torch.as_tensor(column, device=args[name].device)}
-            return inner(args)
+            if upload is None:
+                strike()
+                return inner(args)
+
+            def _striking_upload(rows: dict) -> dict:
+                strike()
+                return upload(rows)
+
+            return inner(args, upload=_striking_upload)
 
         return _faulty
+
+    def _strike(self, index: int, width: int, host: "dict[str, np.ndarray] | None") -> Callable[[], None]:
+        """What dispatch ``index`` suffers before its call: raise, OOM or
+        hang, chosen now, in that order of precedence (a no-op if none)."""
+        if index in self.oom_at or (self.oom_above is not None and width > self.oom_above):
+            err: Exception | None = FakeResourceExhaustedError(
+                f"RESOURCE_EXHAUSTED: out of memory allocating a {width}-wide dispatch (injected)"
+            )
+        elif index in self.raise_at or (self.raise_when is not None and self.raise_when(host)):
+            err = self.error_factory(index)
+        else:
+            err = None
+        hang = index in self.hang_at
+
+        def strike() -> None:
+            if err is not None:
+                raise err
+            if hang:
+                time.sleep(self.hang_s)
+
+        return strike
 
 
 # ------------------------------------------------------------- sampler chaos

@@ -15,6 +15,9 @@ relative for the batched losses, with margin for other BLAS builds):
   ``jax.vmap(value_and_grad)`` program, ``BATCH_RTOL`` relative;
 - the batch (one autograd call over the summed losses) against each trial
   trained alone, ``BATCH_RTOL`` relative: the trials share no parameter;
+- the sharded loop's form of the same training (one-hot labels,
+  ``cross_entropy_onehot``) against ``bench.py::_sharded_mlp_objective``'s
+  program and against the index loss, ``BATCH_RTOL`` relative;
 - a config #5 study of 16 trials through ``optimize_vectorized`` with
   ``RandomSampler`` on both packages: params bit for bit, values
   ``BATCH_RTOL`` relative.
@@ -169,6 +172,56 @@ def test_config5_batched_objective_matches_reference_and_each_trial_alone():
         params, _ = mlp.train_mlp(mlp.MLPParams(*(p * float(s) for p in base)), tx, ty, torch.tensor(rate), N_STEPS)
         alone.append(float(mlp.cross_entropy(mlp.mlp_forward(params, tx), ty)))
     np.testing.assert_allclose(port, alone, rtol=BATCH_RTOL)
+
+
+def _reference_sharded_program(init, x, y, n_steps):
+    """``bench.py::_sharded_mlp_objective``'s ``fn``, at any size: one-hot
+    labels, a max-shifted ``logsumexp`` cross-entropy, ``n_steps`` SGD steps
+    in a ``lax.scan``, trials vmapped."""
+    import jax
+    import jax.numpy as jnp
+
+    jx, jyl = jnp.asarray(x), jnp.asarray(y)
+    onehot = jnp.eye(init["w2"].shape[1], dtype=jnp.float32)[jyl]
+    model = {k: jnp.asarray(v) for k, v in init.items()}
+
+    def cross_entropy(logits):
+        logits = logits - logits.max(axis=1, keepdims=True)
+        lse = jnp.log(jnp.exp(logits).sum(axis=1))
+        return jnp.mean(lse - jnp.sum(logits * onehot, axis=1))
+
+    def train_one(m, lr, scale):
+        p = {k: v * scale for k, v in m.items()}
+
+        def forward(p):
+            h = jnp.maximum(jx @ p["w1"] + p["b1"], 0.0)
+            return h @ p["w2"] + p["b2"]
+
+        def step(p, _):
+            loss, grads = jax.value_and_grad(lambda q: cross_entropy(forward(q)))(p)
+            return {k: v - lr * grads[k] for k, v in p.items()}, loss
+
+        p, _ = jax.lax.scan(step, p, None, length=n_steps)
+        return cross_entropy(forward(p))
+
+    return jax.jit(lambda params: jax.vmap(train_one, in_axes=(None, 0, 0))(model, params["lr"], params["init_scale"]))
+
+
+def test_config5_sharded_objective_matches_reference_and_the_index_loss():
+    """The sharded loop's training (``train_scaled_batch`` with
+    ``cross_entropy_onehot``) against ``bench.py::_sharded_mlp_objective``'s
+    program, and against the same training on the index cross-entropy."""
+    x, y, init = _problem()
+    lr, scale = _draws(8)
+    ref = np.asarray(_reference_sharded_program(init, x, y, N_STEPS)({"lr": lr, "init_scale": scale}))
+    base = mlp.mlp_params_from_numpy(init, "cpu")
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    onehot = torch.eye(N_OUT)[ty.long()]
+    args = (torch.from_numpy(lr), torch.from_numpy(scale), N_STEPS)
+    port = mlp.train_scaled_batch(base, tx, onehot, *args, mlp.cross_entropy_onehot).numpy()
+    assert port.shape == (8,) and np.isfinite(port).all()
+    np.testing.assert_allclose(port, ref, rtol=BATCH_RTOL)
+    np.testing.assert_allclose(port, mlp.train_scaled_batch(base, tx, ty, *args).numpy(), rtol=BATCH_RTOL)
 
 
 def test_config5_study_matches_reference():

@@ -46,20 +46,7 @@ NOT_YET: dict[str, dict[str, str]] = {
     "slo": {},
     "locksan": {},
     "storages": {},
-    "parallel": {
-        name: "A8a"
-        for name in (
-            "IciJournalBackend",
-            "PodFollowerStorage",
-            "ShardedBatchExecutor",
-            "ShardedObjective",
-            "build_study_mesh",
-            "make_shard_and_gather_fns",
-            "match_partition_rules",
-            "mesh_worker_id",
-            "optimize_sharded",
-        )
-    },
+    "parallel": {},
 }
 
 

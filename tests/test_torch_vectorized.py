@@ -21,8 +21,9 @@ expression in torch):
   ``tests/test_executor_fastpath.py`` and the executor half of
   ``tests/test_sampler_faults.py``.
 
-A ``mesh`` raises ``NotImplementedError`` naming the sharded tier's
-ROADMAP item; ``device=None`` is the card and raises without one.
+A one-rank ``mesh`` dispatches through the sharded tier's
+``MeshDispatch`` and runs trial for trial as the mesh-less loop;
+``device=None`` is the card and raises without one.
 """
 
 from __future__ import annotations
@@ -327,12 +328,21 @@ def test_pack_params_float32_values_and_int32_choice_indices():
 
 
 def test_a_mesh_names_the_sharded_tier_and_the_default_device_is_the_card():
-    obj = VectorizedObjective(_quad, {"x": FloatDistribution(0.0, 1.0)})
+    """A one-rank CPU mesh dispatches through the sharded tier and equals
+    the mesh-less run trial for trial; with no mesh, ``device=None`` is the
+    card."""
+    from optuna_tpu_torch.parallel import build_study_mesh
+
+    space = {"x": FloatDistribution(0.0, 1.0)}
+    obj = VectorizedObjective(_quad, space)
+    mesh = build_study_mesh({"trials": 1, "model": 1}, device="cpu")
+    assert obj.guarded(mesh, "trials").mesh is mesh  # the wrapper is the tier's MeshDispatch
+    plain = optuna_tpu_torch.create_study(sampler=RandomSampler(seed=0))
+    optimize_vectorized(plain, VectorizedObjective(_quad, space), n_trials=6, batch_size=4, device="cpu")
+    meshed = optuna_tpu_torch.create_study(sampler=RandomSampler(seed=0))
+    optimize_vectorized(meshed, obj, n_trials=6, batch_size=4, mesh=mesh)
+    assert [(t.params, t.state, t.values) for t in meshed.trials] == [(t.params, t.state, t.values) for t in plain.trials]
     study = optuna_tpu_torch.create_study(sampler=RandomSampler(seed=0))
-    with pytest.raises(NotImplementedError, match="A8a"):
-        optimize_vectorized(study, obj, n_trials=4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded tier"):
-        obj.guarded(object(), "trials")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             optimize_vectorized(study, obj, n_trials=4)
