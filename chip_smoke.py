@@ -23,7 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
    plain stack loop on the card, at the 512-point root, the fronts of
    32 and 64 that phase 17 times, and the (512, 17, 5) candidate roots of
    the HSSP's first greedy step (phase 21).
-3. A small sparse reduction on the card against the same code on the CPU.
+3. A small sparse reduction on the card against the same code on the CPU,
+   and the device Sobol tier (``ops/qmc.py::sobol_sample_device``, plain
+   torch) at (2048, 20): unshifted, SciPy's ``scramble=False`` points bit
+   for bit; with a seeded generator, the numpy XOR of the shift it drew.
 4. Exact engine: a GPSampler study on Hartmann-20D with 1000 seeded completed
    trials, then 3 GP asks.
 5. Sparse engine: the same with 4000 trials and 8 GP asks, each through the
@@ -1362,6 +1365,47 @@ def phase_small_sparse(device) -> None:
     print(f"small sgpr_reduce card vs CPU: rel err alpha {e_alpha:.3e}, L {e_l:.3e}, rungs {r_gpu}/{r_cpu} (tolerance {SMALL_TOL})")
     if not (e_alpha <= SMALL_TOL and e_l <= SMALL_TOL and r_gpu == r_cpu):
         fail("small sgpr_reduce disagrees between the card and the CPU")
+
+
+def phase_sobol_device(device, gpu: str) -> None:
+    """``ops/qmc.py::sobol_sample_device`` on the card: plain torch, no kernel
+    of the repo. Unshifted, its (2048, 20) points are SciPy's
+    ``scramble=False`` stream bit for bit; with a seeded generator they are
+    the same Gray-code XOR done in numpy from the shift the generator drew."""
+    import torch
+    from scipy.stats import qmc
+
+    from optuna_tpu_torch.ops.qmc import sobol_sample_device
+
+    n, d, seed = 2048, 20, 2026
+    raw = sobol_sample_device(n, d, device=device)
+    want = qmc.Sobol(d=d, scramble=False).random(n)
+    if raw.device.type != "cuda" or raw.dtype != torch.float32 or tuple(raw.shape) != (n, d):
+        fail(f"sobol_sample_device gave {raw.dtype} {tuple(raw.shape)} on {raw.device}")
+    raw_diff = int(np.count_nonzero(raw.cpu().numpy().astype(np.float64) != want))
+
+    shifted = sobol_sample_device(n, d, generator=torch.Generator(device=device).manual_seed(seed), device=device)
+    shift = torch.randint(
+        0, 1 << 30, (d,), generator=torch.Generator(device=device).manual_seed(seed), dtype=torch.int64, device=device
+    ).cpu().numpy()
+    sv = qmc.Sobol(d=d, scramble=False)._sv[:, :30].astype(np.int64)
+    i = np.arange(n, dtype=np.int64)
+    gray = i ^ (i >> 1)
+    acc = np.zeros((n, d), np.int64)
+    for b in range(30):
+        acc ^= ((gray >> b) & 1)[:, None] * sv[None, :, b]
+    want_shifted = (acc ^ shift[None, :]).astype(np.float32) * np.float32(2.0**-30)
+    shifted_diff = int(np.count_nonzero(shifted.cpu().numpy() != want_shifted))
+
+    raw_ms = cuda_ms(lambda: sobol_sample_device(n, d, device=device), reps=20)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shifted_ms = cuda_ms(lambda: sobol_sample_device(n, d, generator=gen, device=device), reps=20)
+    print(
+        f"Sobol device ({n}, {d}): unshifted {raw_ms:.4f} ms, {raw_diff} of {n * d} values off SciPy; shifted "
+        f"{shifted_ms:.4f} ms, {shifted_diff} off the numpy XOR (tolerance 0, bit for bit); {gpu}"
+    )
+    if raw_diff or shifted_diff:
+        fail(f"sobol_sample_device disagrees: {raw_diff} unshifted and {shifted_diff} shifted values differ")
 
 
 # ------------------------------------------------------------------- TPE
@@ -4807,6 +4851,7 @@ def main() -> None:
     ]
     hssp_stack_check(device)
     phase_small_sparse(device)
+    phase_sobol_device(device, gpu)
 
     def reset():
         for k in KERNELS:

@@ -323,7 +323,7 @@ class Autopilot:
         try:
             trials = study._storage.get_all_trials(study._study_id, deepcopy=False)
             directions = study.directions
-        except Exception as err:  # best-effort diagnosis: a storage blip while reading history must not abort the optimize loop driving this step
+        except Exception as err:  # graphlint: ignore[PY001] -- best-effort diagnosis: a storage blip while reading history must not abort the optimize loop driving this step
             _logger.info(f"autopilot step skipped after read error: {err!r}")
             return []
         fleet = self._local_fleet()
@@ -443,7 +443,7 @@ class Autopilot:
                 if undo is not None:
                     try:
                         undo()
-                    except Exception as err:  # the undo is best-effort restoration of a knob; a failure to restore must not abort the optimize loop (the action log records the attempt)
+                    except Exception as err:  # graphlint: ignore[PY001] -- the undo is best-effort restoration of a knob; a failure to restore must not abort the optimize loop (the action log records the attempt)
                         _logger.warning(
                             f"autopilot undo for {record.action} raised "
                             f"{err!r}; the knob may retain the acted value."
@@ -632,7 +632,7 @@ class Autopilot:
                 f"{ACTION_ATTR_PREFIX}{record.seq:04d}",
                 record.to_dict(),
             )
-        except Exception as err:  # the audit attr is diagnostics; a storage blip on it must not turn a working remediation into a study abort
+        except Exception as err:  # graphlint: ignore[PY001] -- the audit attr is diagnostics; a storage blip on it must not turn a working remediation into a study abort
             warn_once(
                 _logger,
                 f"autopilot_mirror:{self._token}",

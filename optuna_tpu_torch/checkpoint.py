@@ -152,7 +152,7 @@ def write_checkpoint(
         with telemetry.span("ckpt.write"):
             blob = encode_checkpoint(kind, state, n_told=n_told, seq=seq, fence=fence)
             storage.set_study_system_attr(study_id, key, blob)
-    except Exception as err:  # best-effort by contract: any storage/pickle failure must degrade to "no checkpoint", not kill the optimization loop
+    except Exception as err:  # graphlint: ignore[PY001] -- best-effort by contract: any storage/pickle failure must degrade to "no checkpoint", not kill the optimization loop (a StaleLeaseError from a fenced hub storage lands here too: the fence already counted and demoted, and a zombie's checkpoint is exactly a write to skip)
         _count("write_error", meta={"kind": kind, "seq": int(seq)})
         _logger.warning(
             f"Best-effort checkpoint write ({kind!r} seq {seq}) failed and was "
@@ -239,7 +239,7 @@ def load_checkpoint(
     """
     try:
         attrs = storage.get_study_system_attrs(study_id)
-    except Exception as err:  # restore is best-effort by contract: a storage read fault must degrade to the recompute path, not abort the resume
+    except Exception as err:  # graphlint: ignore[PY001] -- restore is best-effort by contract: a storage read fault must degrade to the recompute path, not abort the resume
         _logger.warning(f"Checkpoint attr read failed; resuming without one: {err!r}")
         return None
     best: CheckpointRecord | None = None
@@ -298,7 +298,7 @@ def max_slot_seq(storage: Any, study_id: int, kind: str) -> int:
     counted nor warned about here (``load_checkpoint`` owns that)."""
     try:
         attrs = storage.get_study_system_attrs(study_id)
-    except Exception:  # best-effort by contract: an unreadable ring just means "start the write counter at 0"
+    except Exception:  # graphlint: ignore[PY001] -- best-effort by contract: an unreadable ring just means "start the write counter at 0"
         return -1
     best = -1
     for slot in range(RING_SLOTS):
@@ -313,7 +313,7 @@ def max_slot_seq(storage: Any, study_id: int, kind: str) -> int:
             record = pickle.loads(payload) if payload is not None else None
             if isinstance(record, dict):
                 best = max(best, int(record.get("seq", -1)))
-        except Exception:  # peek only: a corrupt slot contributes no seq here and is rejected (counted, logged) by load_checkpoint
+        except Exception:  # graphlint: ignore[PY001] -- peek only: a corrupt slot contributes no seq here and is rejected (counted, logged) by load_checkpoint
             continue
     return best
 
@@ -412,7 +412,7 @@ def export_sampler_state(sampler: Any) -> dict[str, Any] | None:
         return None
     try:
         return hook()
-    except Exception as err:  # best-effort by contract: a sampler that cannot serialize its fit must degrade to "no warm state", not fail the checkpoint write
+    except Exception as err:  # graphlint: ignore[PY001] -- best-effort by contract: a sampler that cannot serialize its fit must degrade to "no warm state", not fail the checkpoint write
         _logger.warning(f"export_fitted_state failed; checkpointing without it: {err!r}")
         return None
 
@@ -428,6 +428,6 @@ def restore_sampler_state(sampler: Any, state: Mapping[str, Any] | None) -> bool
         return False
     try:
         return bool(hook(state))
-    except Exception as err:  # best-effort by contract: a corrupt or drifted warm state must degrade to a cold fit
+    except Exception as err:  # graphlint: ignore[PY001] -- best-effort by contract: a corrupt or drifted warm state must degrade to a cold fit, not fail the hub re-home
         _logger.warning(f"restore_fitted_state failed; falling back to a cold fit: {err!r}")
         return False

@@ -865,7 +865,7 @@ def postmortem(reason: str, key: str | None = None) -> str | None:
         _RECORDER.record("postmortem", reason[:200], meta={"path": path})
         _last_postmortem_path = path
         return path
-    except Exception:  # best-effort dump while unwinding a real failure: the original error must surface, a broken dump dir must not replace it
+    except Exception:  # graphlint: ignore[PY001] -- best-effort dump while unwinding a real failure: the original error must surface, a broken dump dir must not replace it
         return None
 
 

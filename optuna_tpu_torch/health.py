@@ -441,7 +441,7 @@ class HealthReporter:
             self._study._storage.set_study_system_attr(
                 self._study._study_id, WORKER_ATTR_PREFIX + self.worker_id, snapshot
             )
-        except Exception as err:  # best-effort diagnostics write: any storage failure here degrades to "no fresh snapshot", never a study abort; the aggregator reports the resulting staleness
+        except Exception as err:  # graphlint: ignore[PY001] -- best-effort diagnostics write: any storage failure here degrades to "no fresh snapshot", never a study abort; the aggregator reports the resulting staleness
             warn_once(
                 _logger,
                 f"health_publish:{self._study._study_id}:{self.worker_id}",
@@ -608,7 +608,7 @@ def _warn_critical_findings(study: "Study") -> None:
         findings = diagnose(
             fleet, trials, study.directions, checks=_CRITICAL_CAPABLE
         )
-    except Exception as err:  # best-effort diagnosis on the hot path's rate-limited branch: a storage blip while *reading* the fleet view must not abort the optimize loop
+    except Exception as err:  # graphlint: ignore[PY001] -- best-effort diagnosis on the hot path's rate-limited branch: a storage blip while *reading* the fleet view must not abort the optimize loop
         _logger.info(f"health diagnosis skipped after read error: {err!r}")
         return
     for finding in findings:

@@ -81,7 +81,7 @@ def lbfgsb(
     rows = torch.arange(B, device=device)
 
     n_iter = 0
-    while n_iter < max_iters and not bool(torch.all(converged)):
+    while n_iter < max_iters and not bool(torch.all(converged)):  # graphlint: ignore[TPU001] -- one host read an iteration ends the loop once every row has converged; converged rows are frozen, so the read only saves work (dropping it is ROADMAP H4)
         d = _two_loop(g, s_hist, y_hist, rho, gamma)
         # Safeguard: fall back to steepest descent if not a descent direction.
         descent = torch.sum(d * g, dim=-1) < 0
@@ -131,3 +131,17 @@ def lbfgsb(
     if return_n_iter:
         return x, f, n_iter
     return x, f
+
+
+def minimize_scalar_log_params(
+    value_and_grad_fn: ValueAndGrad,
+    x0: torch.Tensor,
+    bounds: tuple[float, float] = (-20.0, 20.0),
+    max_iters: int = 200,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Convenience wrapper for unconstrained-ish log-parameter fitting (GP MLL):
+    wide box bounds keep exp() finite without constraining the optimum."""
+    B, D = x0.shape
+    lower = torch.full((D,), bounds[0], dtype=x0.dtype, device=x0.device)
+    upper = torch.full((D,), bounds[1], dtype=x0.dtype, device=x0.device)
+    return lbfgsb(value_and_grad_fn, x0, lower, upper, max_iters=max_iters)

@@ -64,3 +64,22 @@ def logpdf(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def log_mass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Public alias of the stable log Gaussian interval mass."""
     return _log_gauss_mass(a, b)
+
+
+def rvs(
+    generator: torch.Generator | None,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    loc: "torch.Tensor | float" = 0.0,
+    scale: "torch.Tensor | float" = 1.0,
+    shape: tuple[int, ...] | None = None,
+) -> torch.Tensor:
+    """Sample via inverse transform; a/b are in standard units. The uniforms
+    come from ``generator`` (a ``torch.Generator`` on a/b's device, or None
+    for torch's default one) where the reference takes a ``jax.random`` key."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if shape is None:
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+    dtype = a.dtype if a.is_floating_point() else torch.get_default_dtype()
+    q = torch.rand(shape, generator=generator, dtype=dtype, device=a.device)
+    return ppf(q, a, b) * scale + loc

@@ -260,7 +260,7 @@ class MeshDispatch:
                 host = run_with_deadline(
                     lambda: self._rows(local, upload), scope[0], scope[1], describe=f"rows of trials shard {k}"
                 )
-        except Exception as err:  # status boundary: the error travels in the gather, so every rank raises the agreed one below
+        except Exception as err:  # graphlint: ignore[PY001] -- status boundary: the error travels in the gather, so every rank raises the agreed one below
             status, text, local_err = classify(err), f"{type(err).__name__}: {err}"[:500], err
         where = "".join(f"{name[0]}{c}" for name, c in zip(self.mesh.mesh_dim_names, coord))
         gathered = self._gather((coord, where, status, text, host))

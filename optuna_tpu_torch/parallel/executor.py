@@ -170,7 +170,7 @@ def run_with_deadline(
     def _target() -> None:
         try:
             box.append(fn())
-        except BaseException as err:  # thread trampoline: the error is re-raised verbatim on the dispatching thread below, nothing is swallowed
+        except BaseException as err:  # graphlint: ignore[PY001] -- thread trampoline: the error is re-raised verbatim on the dispatching thread below, nothing is swallowed
             failure.append(err)
 
     worker = threading.Thread(target=_target, name=thread_name, daemon=True)
@@ -365,7 +365,7 @@ class ResilientBatchExecutor:
         # process group's timeout.
         try:
             self._run(n_trials)
-        except Exception as err:
+        except Exception as err:  # graphlint: ignore[PY001] -- stop-broadcast boundary: the followers wait on it, so any error ends their wait with its text, then re-raises unchanged
             _mesh.send_stop(f"{type(err).__name__}: {err}"[:500])
             raise
         _mesh.send_stop(None)
@@ -444,7 +444,7 @@ class ResilientBatchExecutor:
                     self._suggest_and_run(trials, proposals, ask_seconds)
             else:
                 self._suggest_and_run(trials, proposals, ask_seconds)
-        except Exception as err:  # last-line containment sweep: whatever escaped between ask and tell must not leave trials RUNNING; the error re-raises below, and BaseException (worker death) goes through for heartbeat failover
+        except Exception as err:  # graphlint: ignore[PY001] -- last-line containment sweep: whatever escaped between ask and tell must not leave trials RUNNING; the original error re-raises below. BaseException (worker death) punches through for heartbeat failover
             # The error is about to surface: flush the flight recorder's tail
             # first (one dump a run), so the sequence that led here outlives
             # the process.
@@ -456,7 +456,7 @@ class ResilientBatchExecutor:
             # idempotent over what the inner containment committed.
             try:
                 self._fail_trials(trials, f"batch aborted: {err!r}")
-            except Exception as sweep_err:  # the storage is down mid-sweep; the batch's own error matters more, so log this one and re-raise that
+            except Exception as sweep_err:  # graphlint: ignore[PY001] -- the storage is down mid-sweep; the original batch error matters more than the sweep's, so log and fall through to the raise
                 _logger.warning(
                     f"containment sweep after a batch error itself "
                     f"raised {sweep_err!r}; surfacing the original "
@@ -549,7 +549,7 @@ class ResilientBatchExecutor:
         if hasattr(study.sampler, "sample_relative_batch"):
             try:
                 proposals = study.sampler.sample_relative_batch(study, self._objective.search_space, b)
-            except Exception as err:  # sampler-fault containment boundary: a batch-fit crash degrades this batch to independent sampling under fallback='independent'; 'raise' and device faults re-raise
+            except Exception as err:  # graphlint: ignore[PY001] -- sampler-fault containment boundary: a batch-fit crash degrades this batch to independent sampling under fallback='independent'; 'raise' and device faults re-raise
                 if self._fallback == "raise" or is_device_fault(err):
                     raise
                 self._batch_fallback_reason = f"{type(err).__name__}: {err}"[:500]
@@ -607,7 +607,7 @@ class ResilientBatchExecutor:
                 # the lazy path's.
                 try:
                     relative = trial._ensure_relative_params()
-                except Exception as err:  # sampler-fault containment boundary: a per-trial fit crash degrades this trial to independent sampling under fallback='independent'; 'raise' and device faults re-raise
+                except Exception as err:  # graphlint: ignore[PY001] -- sampler-fault containment boundary: a per-trial fit crash degrades this trial to independent sampling under fallback='independent'; 'raise' and device faults re-raise
                     if self._fallback == "raise" or is_device_fault(err):
                         raise
                     self._note_sampler_fallback(trial, "relative", f"{type(err).__name__}: {err}"[:500])
@@ -654,7 +654,7 @@ class ResilientBatchExecutor:
             self._study._storage.set_trial_system_attr(
                 trial._trial_id, SAMPLER_FALLBACK_ATTR_PREFIX + phase, reason[:500]
             )
-        except Exception as err:  # the attr is diagnostics; a storage blip on it must not turn a contained sampler fault into a batch abort
+        except Exception as err:  # graphlint: ignore[PY001] -- the attr is diagnostics; a storage blip on it must not turn a contained sampler fault into a batch abort
             _logger.warning(
                 f"recording sampler fallback for trial {trial.number} raised "
                 f"{err!r}; continuing with the fallback anyway."
@@ -673,7 +673,7 @@ class ResilientBatchExecutor:
         """Evaluate and tell one (sub-)batch with full containment."""
         try:
             values, finite = self._eval(trials)
-        except Exception as err:  # containment boundary: every dispatch error becomes FAIL tells (plus bisection or halving); BaseException (worker death, Ctrl-C) goes through for heartbeat failover
+        except Exception as err:  # graphlint: ignore[PY001] -- containment boundary: every dispatch error becomes FAIL tells (plus bisection/halving); BaseException (worker death, Ctrl-C) punches through for heartbeat failover
             self._contain(trials, err)
             return
         with torch.profiler.record_function(_TRACE_TELL), telemetry.span("tell"), flight.span("tell"):
@@ -835,7 +835,7 @@ class ResilientBatchExecutor:
                 continue
             try:
                 self._run_batch(group)
-            except Exception as err:  # deferred re-raise: an early group's error must not leave the later groups RUNNING; the earliest error re-raises below once every group holds terminal states
+            except Exception as err:  # graphlint: ignore[PY001] -- deferred re-raise: an early group's error must not strand the later groups RUNNING; the earliest error re-raises below once every group holds terminal states
                 if _is_uncontained_device_fault(err):
                     rest = [t for g in groups[i + 1 :] for t in g]
                     self._fail_trials(rest, f"device fault in the dispatch: {err!r}")
@@ -911,7 +911,7 @@ class ResilientBatchExecutor:
                     study._storage.set_trial_system_attr(trial._trial_id, "fail_reason", reason)
                 except UpdateFinishedTrialError:
                     raise  # race lost: handled by the outer except
-                except Exception as err:  # the reason attr is diagnostics; a blip on it must not skip the FAIL tell below
+                except Exception as err:  # graphlint: ignore[PY001] -- the reason attr is diagnostics; a blip on it must not skip the FAIL tell below (losing the diagnostic is recoverable, stranding the trial RUNNING is not)
                     _logger.warning(
                         f"writing fail_reason for trial {trial.number} raised "
                         f"{err!r}; failing the trial without it."
@@ -919,7 +919,7 @@ class ResilientBatchExecutor:
                 frozen = study.tell(trial, state=TrialState.FAIL)
             except UpdateFinishedTrialError:
                 continue
-            except Exception as err:  # containment must visit every trial: a storage blip on one tell must not leave the rest RUNNING; the first error re-raises below
+            except Exception as err:  # graphlint: ignore[PY001] -- containment must visit every trial: a storage blip on one tell must not abort the loop and strand the rest RUNNING; the first error re-raises below (user callback errors still propagate, parity with the serial loop)
                 if storage_error is None:
                     storage_error = err
                 _logger.warning(

@@ -362,7 +362,7 @@ def _chunk_program(
             xs.append(x_i)
             vals.append(val)
             acqs.append(v_i)
-            finite = bool(finite_t)  # host read: the quarantine verdict
+            finite = bool(finite_t)  # graphlint: ignore[TPU001] -- host read: the quarantine verdict decides whether the row is ingested; a counted sync a step, left to ROADMAP H4
             finites.append(finite)
             if not finite:
                 # Never ingested: buffers, factor and cursor stay as they
@@ -490,7 +490,7 @@ def _chunk_program_sparse(
             xs.append(x_i)
             vals.append(val)
             acqs.append(v_i)
-            finite, need_swap = torch.stack([finite_t, need_swap_t]).tolist()  # one host read
+            finite, need_swap = torch.stack([finite_t, need_swap_t]).tolist()  # graphlint: ignore[TPU001] -- one host read a step: the quarantine verdict and the inducing-swap decision steer the host loop; left to ROADMAP H4
             finites.append(finite)
             if not finite:
                 quar += 1
@@ -1007,7 +1007,7 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, l
                         f"non-finite objective value {vals[i]!r} quarantined "
                         "(scan loop, isfinite verdict)",
                     )
-                except Exception as err:  # the reason attr is diagnostics; the FAIL tell below must run
+                except Exception as err:  # graphlint: ignore[PY001] -- the reason attr is diagnostics; a blip on it must not skip the FAIL tell below
                     _logger.warning(
                         f"writing fail_reason for trial {trial.number} raised "
                         f"{err!r}; failing the trial without it."
@@ -1028,7 +1028,7 @@ def _sync_results(study, space, space_dict, xs, vals, fins, callbacks, *, ops, l
         _fail_remaining(
             study, trials[j:], "study stopped (Study.stop()) before this trial was told"
         )
-    except Exception:  # a storage error mid-sync must not strand the chunk's trials RUNNING
+    except Exception:  # graphlint: ignore[PY001] -- containment sweep: a storage blip mid-sync must not strand the chunk's already-created trials RUNNING; the original error re-raises after the sweep
         _fail_remaining(study, trials[j:], "scan chunk sync aborted before this trial was told")
         raise
     finally:
@@ -1142,7 +1142,7 @@ def _reap_strays(study, trial_ids, *, reason: str) -> None:
             storage.set_trial_system_attr(tid, _ckpt.STRANDED_ATTR, True)
             storage.set_trial_system_attr(tid, "fail_reason", reason)
             storage.set_trial_state_values(tid, state=TrialState.FAIL)
-        except Exception as err:  # reaping is best-effort cleanup; a later resume retries a stray left RUNNING
+        except Exception as err:  # graphlint: ignore[PY001] -- reaping is best-effort cleanup; a blip must not abort the resume (the stray stays RUNNING until a later resume retries)
             _logger.warning(f"reaping stranded trial id {tid} raised {err!r}; continuing.")
     if trial_ids:
         study._thread_local.cached_all_trials = None
@@ -1169,12 +1169,12 @@ def _fail_remaining(study, trials, reason: str) -> None:
                 study._storage.set_trial_system_attr(trial._trial_id, "fail_reason", reason)
             except UpdateFinishedTrialError:
                 raise
-            except Exception:  # diagnostics attr; the FAIL tell below is what matters
+            except Exception:  # graphlint: ignore[PY001] -- diagnostics attr; the FAIL tell below is what matters
                 pass
             study.tell(trial, state=TrialState.FAIL)
         except UpdateFinishedTrialError:
             continue
-        except Exception as err:  # visit every trial: one failed tell must not strand the rest
+        except Exception as err:  # graphlint: ignore[PY001] -- containment must visit every trial; a blip on one tell must not strand the rest RUNNING
             _logger.warning(
                 f"failing trial {trial.number} raised {err!r}; continuing so "
                 "the rest of the chunk is not stranded RUNNING."

@@ -416,7 +416,7 @@ class CmaEsSampler(BaseSampler):
             result = (state, extra)
             self._state_cache = (hexstr, result)
             return result
-        except Exception:  # corrupt or racing state attrs of any flavor: a clean optimizer restart is always safe
+        except Exception:  # graphlint: ignore[PY001] -- corrupt/racing state attrs of any flavor -> clean optimizer restart is always safe
             _logger.warning("Broken CMA-ES state attrs; restarting the optimizer.")
             return None
 

@@ -1,0 +1,3 @@
+from optuna_tpu_torch.samplers._gp.sampler import GPSampler
+
+__all__ = ["GPSampler"]

@@ -58,7 +58,7 @@ def _factor(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, ok): ``torch.linalg.cholesky_ex`` can hand back a finite but wrong
     partial factor with ``info > 0`` where JAX returns NaN, so a factor is
     good only when ``info == 0`` *and* every entry is finite."""
-    L, info = torch.linalg.cholesky_ex(K)
+    L, info = torch.linalg.cholesky_ex(K)  # graphlint: ignore[SMP002] -- this IS the ladder helper: the one blessed bare call, guarded by the escalation loop that calls it
     return L, (info == 0) & torch.all(torch.isfinite(L))
 
 
@@ -486,7 +486,7 @@ class GuardedSampler(BaseSampler):
                 study._storage.set_trial_system_attr(trial._trial_id, key, reason)
             else:
                 study._storage.set_study_system_attr(study._study_id, key, reason)
-        except Exception as attr_err:  # the attr is diagnostics; a storage blip on it must not turn a contained sampler failure into a study abort
+        except Exception as attr_err:  # graphlint: ignore[PY001] -- the attr is diagnostics; a storage blip on it must not turn a contained sampler failure into a study abort
             _logger.warning(
                 f"recording sampler fallback attr {key!r} raised {attr_err!r}; "
                 "continuing with the fallback anyway."
@@ -528,7 +528,7 @@ class GuardedSampler(BaseSampler):
     ) -> dict[str, BaseDistribution]:
         try:
             return self._sampler.infer_relative_search_space(study, trial)
-        except Exception as err:  # ring-2 containment boundary: any sampler crash degrades this trial to independent sampling instead of aborting the study ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary: any sampler crash degrades this trial to independent sampling instead of aborting the study ('raise' policy re-raises in _contain)
             self._contain(study, trial, "search_space", err)
             return {}
 
@@ -549,7 +549,7 @@ class GuardedSampler(BaseSampler):
                 lambda: self._sampler.sample_relative(study, trial, search_space),
                 "relative fit",
             )
-        except Exception as err:  # ring-2 containment boundary: any sampler crash (or fit-watchdog timeout) degrades this trial to independent sampling ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary: any sampler crash (or fit-watchdog timeout) degrades this trial to independent sampling ('raise' policy re-raises in _contain)
             self._contain(study, trial, "relative", err)
             return {}
         bad = non_finite_param_names(params, search_space)
@@ -590,7 +590,7 @@ class GuardedSampler(BaseSampler):
             return self._timed(
                 lambda: inner(study, search_space, batch_size), "batch relative fit"
             )
-        except Exception as err:  # ring-2 containment boundary: a batch-fit crash degrades the whole batch to independent sampling ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary: a batch-fit crash degrades the whole batch to independent sampling ('raise' policy re-raises in _contain)
             self.last_batch_fallback_reason = f"{type(err).__name__}: {err}"[:500]
             self._contain(study, None, "relative_batch", err)
             return None
@@ -606,7 +606,7 @@ class GuardedSampler(BaseSampler):
             value = self._sampler.sample_independent(
                 study, trial, param_name, param_distribution
             )
-        except Exception as err:  # ring-2 containment boundary (last ring before random): the independent path itself failing falls to a plain RandomSampler ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary (last ring before random): the independent path itself failing falls to a plain RandomSampler ('raise' policy re-raises in _contain)
             self._contain(study, trial, f"independent:{param_name}", err)
             return self._random().sample_independent(
                 study, trial, param_name, param_distribution
@@ -628,7 +628,7 @@ class GuardedSampler(BaseSampler):
     def before_trial(self, study: "Study", trial: FrozenTrial) -> None:
         try:
             self._sampler.before_trial(study, trial)
-        except Exception as err:  # ring-2 containment boundary: a before_trial crash (e.g. state restore) must not strand the just-created trial ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary: a before_trial crash (e.g. state restore) must not strand the just-created trial ('raise' policy re-raises in _contain)
             self._contain(study, trial, "before_trial", err)
 
     def after_trial(
@@ -640,5 +640,5 @@ class GuardedSampler(BaseSampler):
     ) -> None:
         try:
             self._sampler.after_trial(study, trial, state, values)
-        except Exception as err:  # ring-2 containment boundary: an after_trial crash (state persist, constraints eval) must not abort the finished trial's tell ('raise' policy re-raises in _contain)
+        except Exception as err:  # graphlint: ignore[PY001] -- ring-2 containment boundary: an after_trial crash (state persist, constraints eval) must not abort the finished trial's tell ('raise' policy re-raises in _contain)
             self._contain(study, trial, "after_trial", err)

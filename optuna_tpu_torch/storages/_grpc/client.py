@@ -89,7 +89,7 @@ def is_transport_unavailable(err: BaseException) -> bool:
         return False
     try:
         return err.code() == grpc.StatusCode.UNAVAILABLE
-    except Exception:  # a half-constructed RpcError without a status code is not classifiable; treat as not-unavailable rather than crash the classifier
+    except Exception:  # graphlint: ignore[PY001] -- a half-constructed RpcError without a status code is not classifiable; treat as not-unavailable rather than crash the classifier
         return False
 
 
@@ -135,7 +135,7 @@ class GrpcStorageProxy(BaseStorage, BaseHeartbeat):
         if old is not None:
             try:
                 old.close()
-            except Exception:  # a wedged channel may fail close() in grpc-internal ways; reconnect must proceed regardless
+            except Exception:  # graphlint: ignore[PY001] -- a wedged channel may fail close() in grpc-internal ways; reconnect must proceed regardless
                 pass
         self._setup()
 

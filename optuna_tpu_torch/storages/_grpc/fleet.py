@@ -309,13 +309,13 @@ class FleetReplicator:
             # and demoted this hub before raising: a zombie's replay record
             # simply does not land, quietly.
             _logger.info(f"fleet replay record for study {study_id} fenced.")
-        except Exception as err:  # replication is best-effort durability: the ask was answered; a record write blip must not fail it (the uncovered window equals today's single-hub behavior)
+        except Exception as err:  # graphlint: ignore[PY001] -- replication is best-effort durability: the ask was answered; a record write blip must not fail it (the uncovered window equals today's single-hub behavior)
             _logger.warning(f"fleet replay record for study {study_id} raised {err!r}.")
 
     def lookup_ask(self, study_id: int, token: str) -> dict | None:
         try:
             attrs = self._storage.get_study_system_attrs(study_id)
-        except Exception as err:  # lookup is an optimization over re-executing; a read blip falls back to a fresh (still correct, op-token-deduped locally) execution
+        except Exception as err:  # graphlint: ignore[PY001] -- lookup is an optimization over re-executing; a read blip falls back to a fresh (still correct, op-token-deduped locally) execution
             _logger.warning(f"fleet replay lookup for study {study_id} raised {err!r}.")
             return None
         record = attrs.get(f"{_TOKEN_ATTR_PREFIX}{self._slot(token)}")
@@ -364,7 +364,7 @@ class FleetReplicator:
         except StaleLeaseError:
             # See record_ask: counted and demoted at the fence already.
             _logger.info(f"fleet watermark for study {study_id} fenced.")
-        except Exception as err:  # same best-effort contract as record_ask: a missed watermark means a successor starts one epoch behind, which the invalidation machinery already tolerates
+        except Exception as err:  # graphlint: ignore[PY001] -- same best-effort contract as record_ask: a missed watermark means a successor starts one epoch behind, which the invalidation machinery already tolerates
             _logger.warning(f"fleet watermark for study {study_id} raised {err!r}.")
 
     def watermark_epoch(self, study_id: int) -> int:
@@ -373,7 +373,7 @@ class FleetReplicator:
         continue the dead hub's instead of restarting at 0."""
         try:
             attrs = self._storage.get_study_system_attrs(study_id)
-        except Exception as err:  # see lookup_ask: absence degrades to epoch 0, the fresh-hub behavior
+        except Exception as err:  # graphlint: ignore[PY001] -- see lookup_ask: absence degrades to epoch 0, the fresh-hub behavior
             _logger.warning(f"fleet watermark read for study {study_id} raised {err!r}.")
             return 0
         epoch = 0
@@ -570,7 +570,7 @@ class StudyLeases:
         if fresh is None:
             try:
                 current = self.read(study_id)
-            except Exception as err:  # a fence that cannot read must not block the write: the uncovered window equals today's pre-lease behavior, and the next readable check re-arms it
+            except Exception as err:  # graphlint: ignore[PY001] -- a fence that cannot read must not block the write: the uncovered window equals today's pre-lease behavior, and the next readable check re-arms it
                 _logger.warning(
                     f"lease fence read for study {study_id} raised {err!r}; "
                     f"write passed unfenced."
@@ -611,7 +611,7 @@ class StudyLeases:
         for study_id in held:
             try:
                 self.release(study_id)
-            except Exception as err:  # release is a courtesy to the successor (skip the grace wait); a drain must complete even when the shared storage is already gone
+            except Exception as err:  # graphlint: ignore[PY001] -- release is a courtesy to the successor (skip the grace wait); a drain must complete even when the shared storage is already gone
                 _logger.warning(
                     f"lease release for study {study_id} raised {err!r}."
                 )
@@ -965,7 +965,7 @@ class FleetHub:
                 self.leases.acquire(study_id, takeover=True)
         except StaleLeaseError as err:
             self._on_fenced(study_id, err)
-        except Exception as err:  # lease upkeep must never fail an ask: an unreadable lease record leaves this hub on the unfenced epoch-0 path, exactly the pre-lease behavior, until the record reads again
+        except Exception as err:  # graphlint: ignore[PY001] -- lease upkeep must never fail an ask: an unreadable lease record leaves this hub on the unfenced epoch-0 path, exactly the pre-lease behavior, until the record reads again
             _logger.warning(
                 f"lease upkeep for study {study_id} on hub {self.name!r} "
                 f"raised {err!r}."
@@ -1067,7 +1067,7 @@ class FleetHub:
                 study_id, trial_id, trial_number,
                 op_token=op_token, flow=flow, src=self.name,
             )
-        except Exception as err:  # a peer that dies mid-forward must degrade to a local answer (the forwarding hub IS a valid successor), never surface as a client-visible failure; a device fault is the exception
+        except Exception as err:  # graphlint: ignore[PY001] -- a peer that dies mid-forward must degrade to a local answer (the forwarding hub IS a valid successor), never surface as a client-visible failure; a device fault is the exception
             if is_device_fault(err):
                 # The owner's card or kernel failed: answered as the error,
                 # never hidden behind this hub's answer.
@@ -1108,7 +1108,7 @@ class FleetHub:
                 continue
             try:
                 verdict = peer.service_burn_verdict()
-            except Exception as err:  # an unreachable peer simply drops out of the candidate set; shedding decisions must never raise
+            except Exception as err:  # graphlint: ignore[PY001] -- an unreachable peer simply drops out of the candidate set; shedding decisions must never raise
                 _logger.warning(f"burn verdict from hub {name!r} raised {err!r}.")
                 continue
             key = self._burn_key(verdict)
@@ -1279,7 +1279,7 @@ class FleetClient:
                 resp = self._asks[hub](
                     study_id, trial_id, number, token, attempt > 0
                 )
-            except Exception as err:  # the injected classifier decides retryability; everything else re-raises to the sampler's degradation boundary
+            except Exception as err:  # graphlint: ignore[PY001] -- the injected classifier decides retryability; everything else re-raises to the sampler's degradation boundary
                 attempt += 1
                 if not self._is_unavailable(err) or attempt >= self._retry.max_attempts:
                     raise

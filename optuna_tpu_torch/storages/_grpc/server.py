@@ -85,7 +85,7 @@ def _make_dispatch(
             method_name, args, kwargs = decode_request(request_bytes)
         except WireVersionError as e:
             return encode_response(False, e)
-        except Exception as e:  # security boundary: malformed wire bytes of any flavor are rejected, the server never crashes on input
+        except Exception as e:  # graphlint: ignore[PY001] -- security boundary: malformed wire bytes of any flavor are rejected, the server never crashes on input
             return encode_response(False, ValueError(f"Malformed request: {e}"))
         is_suggest = suggest_service is not None and method_name in SUGGEST_METHODS
         if method_name not in METHODS and not is_suggest:
@@ -135,7 +135,7 @@ def _make_dispatch(
                 target = suggest_service if is_suggest else storage
                 result = getattr(target, method_name)(*args, **kwargs)
             response = encode_response(True, result)
-        except Exception as e:  # exceptions ride the wire: every storage error is encoded and re-raised client-side, not handled here
+        except Exception as e:  # graphlint: ignore[PY001] -- exceptions ride the wire: every storage error is encoded and re-raised client-side, not handled here
             # Failures are NOT recorded: a retry after an app-level error
             # should re-execute, not replay the error.
             error_response = encode_response(False, e)
@@ -319,6 +319,6 @@ def run_grpc_proxy_server(
         metrics_server.shutdown()
     try:
         storage.remove_session()
-    except Exception:  # shutdown teardown: a failing session release must not mask a clean drain
+    except Exception:  # graphlint: ignore[PY001] -- shutdown teardown: a failing session release must not mask a clean drain
         pass
     _logger.info("Server drained; storage session released.")

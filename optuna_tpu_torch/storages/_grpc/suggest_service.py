@@ -237,7 +237,7 @@ class ShedPolicy:
         if self._findings_source is not None:
             try:
                 critical = bool(tuple(self._findings_source()))
-            except Exception as err:  # the doctor feed is advisory: a storage blip while reading findings must not take the shed policy (or the ask path) down with it
+            except Exception as err:  # graphlint: ignore[PY001] -- the doctor feed is advisory: a storage blip while reading findings must not take the shed policy (or the ask path) down with it
                 _logger.warning(
                     f"shed policy findings source raised {err!r}; "
                     "treating the fleet as healthy this round."
@@ -248,7 +248,7 @@ class ShedPolicy:
                 # violating its latency promise even though no fleet-level
                 # CRITICAL finding has minted yet — shed on it first.
                 critical = bool(tuple(self._slo_source()))
-            except Exception as err:  # the SLO feed is advisory too: an engine error must not take the shed policy down with it
+            except Exception as err:  # graphlint: ignore[PY001] -- the SLO feed is advisory too: an engine error must not take the shed policy down with it
                 _logger.warning(
                     f"shed policy SLO source raised {err!r}; "
                     "treating the objectives as met this round."
@@ -541,7 +541,7 @@ class _TellObserverStorage(_ForwardingStorage):
         if result and state.is_finished():
             try:
                 self._service.note_tell(trial_id, state)
-            except Exception as err:  # observation boundary: the tell is already committed; a speculation bookkeeping error must never surface as a storage failure to the telling client
+            except Exception as err:  # graphlint: ignore[PY001] -- observation boundary: the tell is already committed; a speculation bookkeeping error must never surface as a storage failure to the telling client
                 _logger.warning(f"suggest-service tell observer raised {err!r}.")
         return result
 
@@ -894,7 +894,7 @@ class SuggestService:
                 # reset the fallback reason this dispatch is about to read).
                 with handle.lock:
                     self._propose_into(handle, batch)
-        except Exception as err:  # dispatch containment: a failure here answers every parked asker with the error instead of stranding them; GuardedSampler already absorbed sampler-level faults upstream
+        except Exception as err:  # graphlint: ignore[PY001] -- dispatch containment: a failure here answers every parked asker with the error instead of stranding them; GuardedSampler already absorbed sampler-level faults upstream
             for item in batch:
                 if item.error is None and not item.done.is_set():
                     item.error = err
@@ -956,13 +956,13 @@ class SuggestService:
                 item.params, item.dists = {}, {}
                 item.fallback = reason
                 try:
-                    # fallback path only, never the served hot path; the attr write must be ordered before the batch returns, and handle.lock is per-study so other studies keep serving
+                    # graphlint: ignore[CONC002] -- fallback path only, never the served hot path; the attr write must be ordered before the batch returns, and handle.lock is per-study so other studies keep serving
                     self._storage.set_trial_system_attr(
                         item.trial_id,
                         SAMPLER_FALLBACK_ATTR_PREFIX + "relative_batch",
                         reason,
                     )
-                except Exception as attr_err:  # the attr is diagnostics; a storage blip on it must not turn a contained server-side fallback into a failed ask
+                except Exception as attr_err:  # graphlint: ignore[PY001] -- the attr is diagnostics; a storage blip on it must not turn a contained server-side fallback into a failed ask
                     _logger.warning(
                         f"recording served fallback attr raised {attr_err!r}."
                     )
@@ -1063,7 +1063,7 @@ class SuggestService:
                 self._refill_needed.discard(study_id)
             try:
                 self.refill_now(study_id)
-            except Exception as err:  # speculation is best-effort: a refill failure leaves the queue empty (asks coalesce instead) and must never kill the worker thread
+            except Exception as err:  # graphlint: ignore[PY001] -- speculation is best-effort: a refill failure leaves the queue empty (asks coalesce instead) and must never kill the worker thread
                 if is_device_fault(err):
                     with self._refill_cond:
                         self._refill_faults[study_id] = err
@@ -1367,7 +1367,7 @@ class ThinClientSampler(BaseSampler):
             token = uuid.uuid4().hex
             try:
                 resp = self._ask(study._study_id, trial._trial_id, trial.number, token)
-            except Exception as err:  # degradation boundary: any server/transport failure on the suggestion path but a device fault falls back to local independent sampling, never aborts the client's trial
+            except Exception as err:  # graphlint: ignore[PY001] -- degradation boundary: any server/transport failure on the suggestion path but a device fault falls back to local independent sampling, never aborts the client's trial
                 if is_device_fault(err):
                     # The hub's card (or a kernel) failed: that is never
                     # contained, here as in GuardedSampler.

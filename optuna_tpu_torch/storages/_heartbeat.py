@@ -86,7 +86,7 @@ class HeartbeatThread:
             for trial_id in self._trial_ids:
                 self._heartbeat.record_heartbeat(trial_id)
             self._first_beat_done = True
-        except Exception as err:  # best-effort liveness write: a storage blip on the first beat must not kill the trial it exists to protect; the daemon thread retries immediately
+        except Exception as err:  # graphlint: ignore[PY001] -- best-effort liveness write: a storage blip on the first beat must not kill the trial it exists to protect; the daemon thread retries immediately
             _logger.warning(
                 f"synchronous first heartbeat failed ({err!r}); the beat "
                 "thread will retry immediately."
@@ -115,7 +115,7 @@ class HeartbeatThread:
         for trial_id in self._trial_ids:
             try:
                 self._heartbeat.record_heartbeat(trial_id)
-            except Exception as err:  # liveness is best-effort by design: the beat retries next interval, and the worker's real failure modes are covered by the reaper, not by crashing the beat thread
+            except Exception as err:  # graphlint: ignore[PY001] -- liveness is best-effort by design: the beat retries next interval, and the worker's real failure modes are covered by the reaper, not by crashing the beat thread
                 error = err
         if error is not None:
             _logger.warning(
@@ -210,7 +210,7 @@ def fail_and_notify_trials(
     get_callback = getattr(storage, "get_failed_trial_callback", None)
     try:
         failed_trial_callback = get_callback() if get_callback is not None else None
-    except Exception as err:  # best-effort cleanup: a storage that cannot even report its callback still gets the FAIL writes below
+    except Exception as err:  # graphlint: ignore[PY001] -- best-effort cleanup: a storage that cannot even report its callback still gets the FAIL writes below
         if not best_effort:
             raise
         failed_trial_callback = None
@@ -227,7 +227,7 @@ def fail_and_notify_trials(
                     storage.set_trial_system_attr(trial_id, "fail_reason", reason)
                 except UpdateFinishedTrialError:
                     raise  # race lost: handled by the outer except
-                except Exception as err:  # the reason attr is diagnostics; a blip on it must not skip the FAIL write below ("losing a clone is recoverable, losing the FAIL is not")
+                except Exception as err:  # graphlint: ignore[PY001] -- the reason attr is diagnostics; a blip on it must not skip the FAIL write below ("losing a clone is recoverable, losing the FAIL is not")
                     _logger.warning(
                         f"writing fail_reason for trial_id {trial_id} raised "
                         f"{err!r}; failing the trial without it."
@@ -240,7 +240,7 @@ def fail_and_notify_trials(
             # an error, not a False CAS. Losing the race is fine: the
             # winner's terminal state stands and it notified for it.
             continue
-        except Exception as err:  # containment must visit every trial: one FAIL write hitting a storage fault must not abort the loop and leave the rest RUNNING; the first error re-raises below unless the caller is itself unwinding (best_effort)
+        except Exception as err:  # graphlint: ignore[PY001] -- containment must visit every trial: one FAIL write hitting a storage fault must not abort the loop and leave the rest RUNNING; the first error re-raises below unless the caller is itself unwinding (best_effort)
             if first_error is None:
                 first_error = err
             _logger.warning(
@@ -256,7 +256,7 @@ def fail_and_notify_trials(
         for trial_id in failed_trial_ids:
             try:
                 failed_trial_callback(study, copy.deepcopy(storage.get_trial(trial_id)))
-            except Exception as err:  # best-effort cleanup while unwinding: the caller's original error matters more than one clone's re-enqueue; logged so the lost lineage is diagnosable
+            except Exception as err:  # graphlint: ignore[PY001] -- best-effort cleanup while unwinding: the caller's original error matters more than one clone's re-enqueue; logged so the lost lineage is diagnosable
                 if not best_effort:
                     raise
                 _logger.warning(

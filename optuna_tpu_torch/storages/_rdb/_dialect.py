@@ -253,7 +253,7 @@ class _ServerDialect:
         migration chain, so upgrades speak the dialect too."""
         try:
             con.execute(self._rewrite_ddl(stmt))
-        except Exception as err:  # DBAPI drivers each raise their own OperationalError family; _is_exists_error classifies, the rest re-raise
+        except Exception as err:  # graphlint: ignore[PY001] -- DBAPI drivers each raise their own OperationalError family; _is_exists_error classifies, the rest re-raise
             if not self._is_exists_error(err):
                 raise
 
@@ -284,7 +284,7 @@ class _ServerDialect:
             # instead of surfacing repeated hard failures.
             try:
                 con.close()
-            except Exception:  # closing a poisoned driver handle may raise anything; the pool just needs it gone
+            except Exception:  # graphlint: ignore[PY001] -- closing a poisoned driver handle may raise anything; the pool just needs it gone
                 pass
             return None
         if not self._engine_kwargs.get("pool_pre_ping", True):
@@ -296,10 +296,10 @@ class _ServerDialect:
         try:
             con.ping()
             return con
-        except Exception:  # pre-ping probe: any driver-flavored failure means the connection is dead, reconnect
+        except Exception:  # graphlint: ignore[PY001] -- pre-ping probe: any driver-flavored failure means the connection is dead, reconnect
             try:
                 con.close()
-            except Exception:  # best-effort close of a connection the ping just proved dead
+            except Exception:  # graphlint: ignore[PY001] -- best-effort close of a connection the ping just proved dead
                 pass
             return None
 
@@ -451,7 +451,7 @@ class _ServerConnection:
         cur = self._raw.cursor()
         try:
             cur.execute(self._dialect.translate(sql), tuple(args))
-        except Exception as err:  # classify-then-reraise: flags connection-level driver errors for the pool, always re-raises
+        except Exception as err:  # graphlint: ignore[PY001] -- classify-then-reraise: flags connection-level driver errors for the pool, always re-raises
             # Connection-level failures poison the handle; checkout() sees
             # the flag and reconnects on the next operation.
             if self._is_connection_error(err):
@@ -464,7 +464,7 @@ class _ServerConnection:
         cur = self._raw.cursor()
         try:
             cur.executemany(self._dialect.translate(sql), [tuple(a) for a in seq])
-        except Exception as err:  # classify-then-reraise: flags connection-level driver errors for the pool, always re-raises
+        except Exception as err:  # graphlint: ignore[PY001] -- classify-then-reraise: flags connection-level driver errors for the pool, always re-raises
             if self._is_connection_error(err):
                 self.broken = True
             raise

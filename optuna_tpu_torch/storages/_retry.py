@@ -168,7 +168,7 @@ class RetryPolicy:
         while True:
             try:
                 return fn()
-            except Exception as err:  # retry kernel: the injected classifier decides retryability; non-retryable errors re-raise unchanged
+            except Exception as err:  # graphlint: ignore[PY001] -- retry kernel: the injected classifier decides retryability; non-retryable errors re-raise unchanged
                 attempt += 1
                 if not classify(err) or attempt >= self.max_attempts:
                     raise

@@ -104,7 +104,7 @@ def _call_objective(func: "ObjectiveFuncType", trial: Trial) -> _Outcome:
         return _Outcome(values=func(trial))
     except exceptions.TrialPruned as pruned:
         return _Outcome(state=TrialState.PRUNED, error=pruned)
-    except (Exception, KeyboardInterrupt) as err:  # objective isolation: any crash becomes a FAIL tell
+    except (Exception, KeyboardInterrupt) as err:  # graphlint: ignore[PY001] -- objective isolation: any user-code crash becomes a FAIL tell; Ctrl-C still fails the trial before propagating
         return _Outcome(state=TrialState.FAIL, error=err, exc_info=sys.exc_info())
 
 
@@ -169,7 +169,7 @@ def _execute_one(
                 state=outcome.state,
                 suppress_warning=True,
             )
-    except Exception:  # announce-then-reraise: nothing is swallowed
+    except Exception:  # graphlint: ignore[PY001] -- announce-then-reraise: nothing is swallowed, the trial's terminal state is logged on every failure flavor
         _announce(study, study._storage.get_trial(trial._trial_id), outcome)
         raise
     if flight.enabled():
@@ -217,7 +217,7 @@ def _worker(
             # lookup while no control loop is attached).
             health.maybe_report(study)
             autopilot.maybe_step(study)
-        except BaseException:  # halt-then-reraise: nothing is swallowed
+        except BaseException:  # graphlint: ignore[PY001] -- halt-then-reraise: the trial budget must stop even on SimulatedWorkerDeath/SystemExit; nothing is swallowed
             budget.halt()
             raise
 

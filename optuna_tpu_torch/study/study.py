@@ -340,7 +340,7 @@ class Study:
             if len(trial_ids) < n:
                 trial_ids.extend(self._storage.create_new_trials(self._study_id, n - len(trial_ids)))
             return [self._init_asked_trial(tid, fixed_distributions) for tid in trial_ids]
-        except Exception as init_err:  # containment boundary: every trial in trial_ids is already RUNNING with no heartbeat yet, so fail_stale_trials could never reap it; FAIL them all, then re-raise
+        except Exception as init_err:  # graphlint: ignore[PY001] -- containment boundary: every trial in trial_ids is already committed RUNNING, and an error during claim/create/init (sampler.before_trial, a storage blip) would otherwise strand them with no heartbeat recorded yet — unreapable by fail_stale_trials
             fail_and_notify_trials(
                 self,
                 trial_ids,

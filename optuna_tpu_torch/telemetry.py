@@ -720,7 +720,7 @@ def serve_metrics(
                 else:
                     try:
                         payload = health_source()
-                    except Exception as err:  # HTTP boundary: a storage blip while aggregating must come back as a 500 to the scraper, never kill the serving thread
+                    except Exception as err:  # graphlint: ignore[PY001] -- HTTP boundary: a storage blip while aggregating must come back as a 500 to the scraper, never kill the serving thread
                         self.send_error(500, f"health aggregation failed: {err!r}")
                         return
                     body = json.dumps(payload).encode()

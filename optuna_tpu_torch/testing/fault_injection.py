@@ -474,7 +474,7 @@ class FakePodBus:
         def run(i: int) -> None:
             try:
                 results[i] = fns[i]()
-            except BaseException as e:  # lockstep trampoline: a worker death (BaseException by design) must abort the barrier so peers fail fast instead of hanging; every error re-raises on the driving thread below
+            except BaseException as e:  # graphlint: ignore[PY001] -- lockstep trampoline: a worker death (BaseException by design) must abort the barrier so peers fail fast instead of hanging; every error re-raises on the driving thread below
                 errors[i] = e
                 self._barrier.abort()
 
@@ -1245,7 +1245,7 @@ class FakeHubFleet:
         for hub in self.hubs.values():
             try:
                 hub.close()
-            except Exception:  # teardown best-effort: one hub's close must not strand the rest
+            except Exception:  # graphlint: ignore[PY001] -- teardown best-effort: one hub's close must not strand the rest
                 pass
 
 
@@ -1374,17 +1374,17 @@ class SocketHubFleet(FakeHubFleet):
         for proxy in self._proxies:
             try:
                 proxy.remove_session()
-            except Exception:  # teardown best-effort: one proxy's close must not strand the rest
+            except Exception:  # graphlint: ignore[PY001] -- teardown best-effort: one proxy's close must not strand the rest
                 pass
         for channel in self._channels.values():
             try:
                 channel.close()
-            except Exception:  # teardown best-effort: one channel's close must not strand the rest
+            except Exception:  # graphlint: ignore[PY001] -- teardown best-effort: one channel's close must not strand the rest
                 pass
         for server in self._servers:
             try:
                 server.stop(0)
-            except Exception:  # teardown best-effort: one server's stop must not strand the rest
+            except Exception:  # graphlint: ignore[PY001] -- teardown best-effort: one server's stop must not strand the rest
                 pass
 
 

@@ -34,6 +34,7 @@ NOT_YET: dict[str, dict[str, str]] = {
         "rastrigin_jax": "not queued",
     },
     "samplers": {},
+    "samplers._gp": {},
     "terminator": {},
     "importance": {},
     "visualization": {},

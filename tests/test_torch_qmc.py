@@ -1,12 +1,16 @@
 """QMC of the port against the reference, on the CPU: both are SciPy's
 engines on the host, so every point is equal bit for bit — the
 ``QMCSampler`` studies (Sobol and Halton, scrambled or not) and
-``halton_sample`` / ``normal_qmc_sample`` / ``sobol_sample``."""
+``halton_sample`` / ``normal_qmc_sample`` / ``sobol_sample``. The device
+tier's ``sobol_sample_device`` is exact integer arithmetic on both sides,
+so it too is held bit for bit: unshifted, and at one shift vector."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
+from scipy.stats import qmc
 
 import optuna_tpu
 import optuna_tpu_torch
@@ -66,3 +70,46 @@ def test_qmc_sampler_two_objectives_and_a_bad_type():
     assert out[0] == out[1]
     with pytest.raises(ValueError, match="qmc_type"):
         optuna_tpu_torch.samplers.QMCSampler(qmc_type="latin")
+
+
+# --------------------------------------------------------- device Sobol tier
+
+
+@pytest.mark.parametrize("n,dim", [(1, 1), (7, 3), (100, 5), (256, 12), (2048, 20)])
+def test_sobol_sample_device_unshifted_equals_the_reference_bit_for_bit(n, dim):
+    """No shift: the port's int64 XOR pipeline is the reference's uint32 one
+    and SciPy's ``scramble=False`` stream, exactly."""
+    got = port_qmc.sobol_sample_device(n, dim, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, dim)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_qmc.sobol_sample_device(n, dim)))
+    if n & (n - 1) == 0:  # SciPy warns on other n; the points are the same
+        np.testing.assert_array_equal(
+            got.numpy().astype(np.float64), qmc.Sobol(d=dim, scramble=False).random(n)
+        )
+
+
+@pytest.mark.parametrize("n,dim,seed", [(64, 2, 0), (300, 7, 1), (2048, 20, 2)])
+def test_sobol_device_kernel_with_one_shift_equals_the_reference_bit_for_bit(n, dim, seed):
+    """Given one 30-bit shift vector, both sides' kernels agree exactly, and
+    the port's seeded entry point is that kernel at the shift its generator
+    draws."""
+    import jax.numpy as jnp
+
+    shift = np.random.RandomState(seed).randint(0, 1 << 30, size=dim).astype(np.int64)
+    sv = ref_qmc._direction_numbers(dim)
+    want = np.asarray(ref_qmc._sobol_device_kernel(jnp.asarray(sv), jnp.asarray(shift.astype(np.uint32)), n))
+    got = port_qmc._sobol_device_kernel(torch.as_tensor(sv.astype(np.int64)), torch.as_tensor(shift), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    drawn = torch.randint(0, 1 << 30, (dim,), generator=torch.Generator().manual_seed(seed), dtype=torch.int64)
+    seeded = port_qmc.sobol_sample_device(n, dim, generator=torch.Generator().manual_seed(seed), device="cpu")
+    want = np.asarray(ref_qmc._sobol_device_kernel(jnp.asarray(sv), jnp.asarray(drawn.numpy().astype(np.uint32)), n))
+    np.testing.assert_array_equal(seeded.numpy(), want)
+    assert float(seeded.min()) >= 0.0 and float(seeded.max()) < 1.0
+
+
+def test_sobol_sample_device_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        port_qmc.sobol_sample_device(8, 2)

@@ -149,3 +149,38 @@ def test_logsumexp_of_all_neg_inf_is_neg_inf():
     want = np.asarray(logsumexp(jnp.asarray(rows), axis=1))
     assert np.isneginf(got[0]) and np.isneginf(want[0])
     np.testing.assert_allclose(got[1:], want[1:], rtol=1e-6)
+
+
+# ------------------------------------------------------------------ rvs
+
+KS_P_MIN = 0.01  # a correct sampler fails this at a fixed seed with probability 1%
+
+
+@pytest.mark.parametrize("a,b,loc,scale", [(-1.0, 2.0, 0.5, 2.0), (0.5, 4.0, 0.0, 1.0), (-8.0, -5.5, -1.0, 0.5)])
+def test_rvs_is_ppf_of_its_uniforms_and_passes_ks_against_scipy(a, b, loc, scale):
+    """``rvs`` is inverse-transform sampling over ``ppf``: with the same seeded
+    ``torch.Generator`` it equals ``ppf`` of the same uniforms exactly, the
+    reference's ``ppf`` of those uniforms to ``ATOL_FAR`` (in standard
+    units), and its sample passes a Kolmogorov-Smirnov test against
+    ``scipy.stats.truncnorm`` at ``KS_P_MIN``."""
+    from scipy.stats import kstest
+
+    n = 20000
+    at, bt = torch.tensor(a), torch.tensor(b)
+    x = port.rvs(torch.Generator().manual_seed(7), at, bt, loc, scale, shape=(n,))
+    q = torch.rand((n,), generator=torch.Generator().manual_seed(7))
+    assert x.dtype == torch.float32 and tuple(x.shape) == (n,)
+    torch.testing.assert_close(x, port.ppf(q, at, bt) * scale + loc, rtol=0, atol=0)
+    want = np.asarray(ref.ppf(jnp.asarray(q.numpy()), jnp.float32(a), jnp.float32(b)))
+    np.testing.assert_allclose((x.numpy() - loc) / scale, want, rtol=0, atol=ATOL_FAR)
+    assert (x >= a * scale + loc - 1e-5).all() and (x <= b * scale + loc + 1e-5).all()
+    p = kstest(x.numpy().astype(np.float64), scipy_truncnorm(a, b, loc=loc, scale=scale).cdf).pvalue
+    assert p > KS_P_MIN, p
+
+
+def test_rvs_broadcasts_a_and_b_when_shape_is_none():
+    a = torch.tensor([[-1.0], [0.0]])
+    b = torch.tensor([1.0, 2.0, 3.0])
+    x = port.rvs(torch.Generator().manual_seed(0), a, b)
+    assert tuple(x.shape) == (2, 3)
+    assert (x >= a).all() and (x <= b).all()
