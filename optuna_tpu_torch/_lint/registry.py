@@ -125,7 +125,7 @@ SMP001_TARGETS: tuple[tuple[str, str, str], ...] = (
 
 #: The telemetry phase vocabulary (one name set for profiler annotations AND
 #: metrics histograms): canonical mirror of ``telemetry.py::PHASES``.
-#: ``tests/test_telemetry.py`` fails if the two drift — a phase added to the
+#: ``tests/test_torch_observability.py`` fails if the two drift — a phase added to the
 #: instrumentation without joining the documented vocabulary is a test
 #: failure, the STO001 discipline applied to observability names.
 TELEMETRY_PHASE_REGISTRY: dict[str, str] = {
@@ -136,14 +136,17 @@ TELEMETRY_PHASE_REGISTRY: dict[str, str] = {
     "dispatch": "objective execution (serial call or batched device dispatch)",
     "tell": "result commit + callbacks (study.tell / batch tell loop)",
     "storage.op": "one logical storage operation (retries + backoff included)",
-    "scan.chunk": "one HBM-resident scan-chunk dispatch (host side; the device run overlaps the previous chunk's sync)",
-    "scan.sync": "chunk-boundary result wait + storage sync of a scan chunk's trials",
+    "scan.chunk": "one device-resident scan chunk: fit, factorization and its ask/evaluate/tell steps",
+    "scan.sync": "chunk-boundary result read-back + storage sync of a scan chunk's trials",
     "shard.exchange": "one pod-wide ICI-journal exchange point at a sharded batch boundary",
     "serve.ask": "one suggestion-service ask served end to end (queue pop, shed rung, or coalesced dispatch)",
     "serve.coalesce": "one fused proposal dispatch answering a whole coalesced ask batch",
     "serve.ready_queue": "one speculative ask-ahead refill dispatch (background, off the RPC path)",
     "ckpt.write": "one best-effort durable checkpoint write at a loop boundary (encode + attr write)",
     "ckpt.restore": "one resume's checkpoint validation + carry reconstruction (load, verify, rebuild)",
+    "ask.create": "the batch's trial creation (Study.ask_batch) inside the batch executor's ask",
+    "ask.suggest": "the batch executor's per-trial suggestion loop: each trial's parameters written, its dispatch tagged",
+    "dispatch.wait": "the host blocked in a dispatch's one read of its results (.cpu()), waiting for the card",
 }
 
 #: The containment-counter families: canonical mirror of

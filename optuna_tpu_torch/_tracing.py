@@ -6,16 +6,21 @@ TensorBoard with no change to the objective:
 * :func:`trace` — context manager that runs a ``torch.profiler.profile``
   over the enclosed block (the CPU and, when there is a card, CUDA
   activities) and writes its Chrome trace into ``logdir``.
-* :func:`annotate` — a named ``torch.profiler.record_function`` range; the
-  optimize loops wrap each trial's ask/objective/tell in one, so kernels
-  line up with trial numbers on the timeline.
+* Phase ranges — ``telemetry.span(phase)`` is the one timer of a program
+  phase: while :func:`profiling` says a profiler runs, it opens the
+  ``optuna_tpu_torch.<phase>`` ``record_function`` range inside the same
+  interval that it hands to the histogram, the SLO sink and the flight
+  ring, so kernels line up with phases and trials on the timeline.
+* :func:`annotate` — a named range outside the phase vocabulary: the
+  optimize loop's per-trial ``optuna_tpu_torch.trial.<n>``.
 * ``OPTUNA_TPU_TORCH_TRACE=<logdir>`` — environment switch that traces every
   ``Study.optimize`` / ``optimize_scan`` / ``optimize_vectorized`` call
   without touching user code.
 
 While no profiler runs (neither :func:`trace` nor a caller's own
 ``torch.profiler.profile``), :func:`annotate` returns one shared null
-context: two checks and no allocation on the hot path.
+context and a phase span opens no range: two checks and no allocation on
+the hot path.
 """
 
 from __future__ import annotations
@@ -80,30 +85,27 @@ def maybe_trace_from_env() -> Iterator[None]:
         yield
 
 
+def profiling() -> bool:
+    """Whether a profiler records ranges now: :func:`trace`, or a caller's
+    own ``torch.profiler.profile``."""
+    return _active or torch.autograd._profiler_enabled()
+
+
 # One shared no-op context for the idle path: ``nullcontext()`` is
 # reentrant and stateless, so a singleton costs no allocation per trial.
 _NULL_ANNOTATION = contextlib.nullcontext()
 
 
-def annotate(name, lazy_arg=None):
+def annotate(name: str, lazy_arg=None):
     """A named profiler range while a profiler runs, else a no-op.
 
-    ``name`` may be lazy so the idle path never formats a string:
-
-    * a plain ``str`` — used as-is;
-    * a zero-arg callable — called only when a profiler runs;
-    * a ``(fmt, args)`` tuple — ``fmt % args``, formatted only then;
-    * a ``%``-format ``str`` plus ``lazy_arg`` — the allocation-free spelling
-      for per-trial names (``annotate("optuna_tpu_torch.trial.%d",
-      trial.number)``).
+    ``name`` is used as-is, or, with ``lazy_arg``, is a ``%``-format
+    formatted only while a profiler runs: the allocation-free spelling for
+    per-trial names (``annotate("optuna_tpu_torch.trial.%d",
+    trial.number)``).
     """
-    if not _active and not torch.autograd._profiler_enabled():
+    if not profiling():
         return _NULL_ANNOTATION
-    if callable(name):
-        name = name()
-    elif isinstance(name, tuple):
-        fmt, args = name
-        name = fmt % args
-    elif lazy_arg is not None:
+    if lazy_arg is not None:
         name = name % lazy_arg
     return torch.profiler.record_function(name)

@@ -8,13 +8,15 @@ much / how often"; this module answers "what happened, in what order, to
 * :class:`FlightRecorder` — a bounded ring buffer (``collections.deque``)
   of structured :class:`FlightEvent` entries, flat in memory however long
   the study runs.
-* **One vocabulary** — span events use the telemetry phase names
-  (``telemetry.PHASES``), so the flight timeline, the metrics histograms
-  and the ``torch.profiler`` ranges of :mod:`optuna_tpu_torch._tracing`
-  line up name for name; containment events use the counter families
-  (``telemetry.COUNTERS``) and are fed from every ``telemetry.count`` call
-  site through a sink hook. Event *kinds* are the :data:`EVENT_KINDS`
-  vocabulary (the reference's kinds).
+* **One vocabulary, one interval** — the program's phases are timed by
+  ``telemetry.span``, which records a ``phase`` event here while flight is
+  on, from the same interval that its histogram observation and its
+  ``torch.profiler`` range take, so the flight timeline, the metrics
+  histograms and the profiler line up name for name and interval for
+  interval; :func:`span` is the ring's own primitive. Containment events
+  use the counter families (``telemetry.COUNTERS``) and are fed from every
+  ``telemetry.count`` call site through a sink hook. Event *kinds* are
+  the :data:`EVENT_KINDS` vocabulary (the reference's kinds).
 * **Runtime compile gauges** — :func:`instrument_jit` keeps the reference's
   name and gauges (``jit.compiles.<label>``, ``jit.compile_seconds.<label>``,
   ``jit.retraces_after_first.<label>``, :func:`jit_totals`). Eager PyTorch
@@ -374,12 +376,14 @@ def enable(recorder: FlightRecorder | None = None, *, capacity: int | None = Non
         _postmortem_keys.clear()
     _enabled = True
     telemetry._set_count_sink(_containment_sink)
+    telemetry._set_flight_recorder(_RECORDER)
 
 
 def disable() -> None:
     global _enabled
     _enabled = False
     telemetry._set_count_sink(None)
+    telemetry._set_flight_recorder(None)
 
 
 def clear() -> None:
@@ -403,9 +407,11 @@ def _containment_sink(name: str, n: int, meta: dict | None = None) -> None:
 
 
 def span(name: str, trial: int | None = None):
-    """Time a ``with`` block as a ``phase`` span (``name`` must be a
-    telemetry phase). Returns a shared do-nothing singleton while disabled —
-    one module-global check, zero allocations on the hot path."""
+    """Time a ``with`` block as a ``phase`` span on the recorder's own clock
+    (``name`` must be a telemetry phase): the ring's primitive. The program
+    times its phases with ``telemetry.span``, which records here too.
+    Returns a shared do-nothing singleton while disabled — one
+    module-global check, zero allocations on the hot path."""
     if not _enabled:
         return _NULL_SPAN
     return _FlightSpan(_RECORDER, "phase", name, trial, None, None, None, None)

@@ -77,14 +77,22 @@ Where the card changes things:
   measured. :func:`run_with_deadline` is also ``GuardedSampler``'s fit
   deadline.
 
-**Observability and control.** The phases are ``torch.profiler``
-ranges, telemetry spans and flight spans; each trial's ask and tell are
-flight events; the quarantine count is a ``device_stats`` tap; a terminal
-batch failure flushes a flight postmortem. At every batch boundary the
-card's memory gauges are sampled, the health reporter publishes and the
-autopilot steps with this executor as the target of its two actuators:
-``autopilot_pin_batch_width`` (``executor.pin_shapes``) and
-``autopilot_tighten_regrowth`` (``executor.tighten_regrowth``).
+**Observability and control.** Each phase is one ``telemetry.span``: one
+interval, read on one clock, feeds the phase histogram, the SLO sink and
+the flight ring, and holds the phase's ``torch.profiler`` range while a
+profiler runs. A batch's ask is two blocks (the batch's creation, then its
+suggestions inside the heartbeat), stitched into one ``ask`` observation;
+inside them ``ask.fit`` and ``ask.propose`` (the sampler's batch ask),
+``ask.create`` and ``ask.suggest``; ``dispatch`` holds ``dispatch.wait``,
+the host blocked in the one read; then ``tell``. Every span of a batch
+carries its tag (``<run token>/<batch number>``) in the flight ring, and
+each trial's ask and tell are flight events; the quarantine count is a
+``device_stats`` tap; a terminal batch failure flushes a flight
+postmortem. At every batch boundary the card's memory gauges are sampled,
+the health reporter publishes and the autopilot steps with this executor
+as the target of its two actuators: ``autopilot_pin_batch_width``
+(``executor.pin_shapes``) and ``autopilot_tighten_regrowth``
+(``executor.tighten_regrowth``).
 """
 
 from __future__ import annotations
@@ -126,10 +134,6 @@ if TYPE_CHECKING:
     from optuna_tpu_torch.trial._frozen import FrozenTrial
 
 _logger = get_logger(__name__)
-
-_TRACE_ASK = telemetry.trace_name("ask")
-_TRACE_DISPATCH = telemetry.trace_name("dispatch")
-_TRACE_TELL = telemetry.trace_name("tell")
 
 #: Monotonic per-executor run tokens (see ``_run_token``).
 _executor_seq = itertools.count()
@@ -221,15 +225,17 @@ def build_non_finite_guard(fn: Callable, *, clip: bool) -> Callable:
 def _read_to_host(values: torch.Tensor, finite: torch.Tensor | None = None) -> tuple[np.ndarray, np.ndarray | None]:
     """A dispatch's one host read: the values (and the finite mask) stacked
     into one tensor and read with one ``.cpu()``, the dispatch's only
-    synchronizing call. Returns ``(values, finite)`` as host arrays, the
-    values in their shape and ``finite`` a bool vector (``None`` without
-    a mask)."""
+    synchronizing call and its ``dispatch.wait`` phase. Returns ``(values,
+    finite)`` as host arrays, the values in their shape and ``finite`` a
+    bool vector (``None`` without a mask)."""
     b = values.shape[0]
     dtype = values.dtype if values.is_floating_point() else torch.float32
     cols = [values.reshape(b, -1).to(dtype)]
     if finite is not None:
         cols.append(finite.reshape(b, 1).to(dtype))
-    host = torch.cat(cols, dim=1).detach().cpu().numpy()
+    stacked = torch.cat(cols, dim=1).detach()
+    with telemetry.span("dispatch.wait"):
+        host = stacked.cpu().numpy()
     if finite is None:
         return host.reshape(tuple(values.shape)), None
     return host[:, :-1].reshape(tuple(values.shape)), host[:, -1] != 0
@@ -338,6 +344,7 @@ class ResilientBatchExecutor:
         self._timeout_width = 0
         self._leaf_strikes = 0
         self._batch_seq = 0
+        self._batch_tag: str | None = None
         self._guarded = objective.guarded(mesh, batch_axis, non_finite)
         # Tells this executor's dispatch bookkeeping from another worker's in
         # a shared storage, and keys warn_once; monotonic, so a recycled
@@ -429,10 +436,12 @@ class ResilientBatchExecutor:
         b = min(self._batch_size, remaining)
         size_before = self._batch_size
         self._oom_seen = False
+        self._batch_tag = f"{self._run_token}/{self._batch_seq}"
+        self._batch_seq += 1
         # The ask phase spans two blocks (the batch creation here and the
         # suggestions inside the heartbeat), stitched into one observation.
         ask_t0 = self._clock()
-        with torch.profiler.record_function(_TRACE_ASK), flight.span("ask"):
+        with telemetry.span("ask", tag=self._batch_tag, observe=False):
             trials, proposals = self._ask_batch(b)
         ask_seconds = self._clock() - ask_t0
         try:
@@ -474,7 +483,7 @@ class ResilientBatchExecutor:
 
     def _suggest_and_run(self, trials: list[Trial], proposals: list | None, ask_seconds: float) -> None:
         ask_t0 = self._clock()
-        with torch.profiler.record_function(_TRACE_ASK), flight.span("ask"):
+        with telemetry.span("ask", tag=self._batch_tag, observe=False), telemetry.span("ask.suggest"):
             self._prepare_batch(trials, proposals)
         telemetry.observe_phase("ask", ask_seconds + (self._clock() - ask_t0))
         self._run_batch(trials)
@@ -563,7 +572,8 @@ class ResilientBatchExecutor:
                     # sampler's batch-fit crash: degrade the batch once
                     # instead of re-attempting the fit per trial.
                     self._batch_fallback_reason = getattr(study.sampler, "last_batch_fallback_reason", None)
-        return study.ask_batch(b), proposals
+        with telemetry.span("ask.create"):
+            return study.ask_batch(b), proposals
 
     def _prepare_batch(self, trials: list[Trial], proposals: list | None) -> None:
         """Suggest every trial's parameters and tag the dispatch
@@ -571,8 +581,6 @@ class ResilientBatchExecutor:
         containment sweep."""
         study = self._study
         space = self._objective.search_space
-        batch_tag = f"{self._run_token}/{self._batch_seq}"
-        self._batch_seq += 1
         # Which batch and slot a trial rode matters only where failover can
         # strand a batch (heartbeat storages, which already pay per-trial
         # writes); elsewhere it would be B extra writes a batch.
@@ -628,7 +636,7 @@ class ResilientBatchExecutor:
                 study._storage.set_trial_system_attr(
                     trial._trial_id,
                     EXECUTOR_ATTR_PREFIX + "dispatch",
-                    {"batch": batch_tag, "slot": i},
+                    {"batch": self._batch_tag, "slot": i},
                 )
             flight.trial_event("ask", trial.number)
 
@@ -676,7 +684,7 @@ class ResilientBatchExecutor:
         except Exception as err:  # graphlint: ignore[PY001] -- containment boundary: every dispatch error becomes FAIL tells (plus bisection/halving); BaseException (worker death, Ctrl-C) punches through for heartbeat failover
             self._contain(trials, err)
             return
-        with torch.profiler.record_function(_TRACE_TELL), telemetry.span("tell"), flight.span("tell"):
+        with telemetry.span("tell", tag=self._batch_tag):
             self._tell_batch(trials, values, finite)
 
     def _eval(self, trials: list[Trial]) -> tuple[np.ndarray, np.ndarray]:
@@ -736,8 +744,7 @@ class ResilientBatchExecutor:
     def _dispatch(self, packed: dict[str, np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
         from optuna_tpu_torch.parallel import _mesh
 
-        with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"), \
-                flight.span("dispatch"):
+        with telemetry.span("dispatch", tag=self._batch_tag):
             if self._deadline_s is None:
                 return self._realize(packed)
             if self._mesh is not None and _mesh.world_size() > 1:

@@ -150,10 +150,6 @@ if TYPE_CHECKING:
 
 _logger = get_logger(__name__)
 
-_TRACE_CHUNK = telemetry.trace_name("scan.chunk")
-_TRACE_SYNC = telemetry.trace_name("scan.sync")
-_TRACE_DISPATCH = telemetry.trace_name("dispatch")
-
 #: Kernel-param fit budgets: (n_starts, lbfgs_iters). The first chunk runs
 #: the cold multi-start; every later chunk refines 2 starts (default + the
 #: previous chunk's optimum).
@@ -727,7 +723,7 @@ def _run_scan(
     resume_state = None
     ledger: _ResumeLedger | None = None
     if resume:
-        with telemetry.span("ckpt.restore"), flight.span("ckpt.restore"):
+        with telemetry.span("ckpt.restore"):
             resume_state, ledger, run_id, told = _restore_scan(
                 study, space_dict, sync_every=sync_every
             )
@@ -756,8 +752,7 @@ def _run_scan(
         if n_startup:
             x0 = space.sample_normalized(n_startup, seed=int(rng.randint(0, 2**31 - 1))).astype(np.float32)
             startup = _startup_program(objective, space)
-            with torch.profiler.record_function(_TRACE_DISPATCH), telemetry.span("dispatch"), \
-                    flight.span("dispatch"):
+            with telemetry.span("dispatch"):
                 vals0, fins0 = startup(torch.as_tensor(x0, device=device))
                 vals0 = vals0.cpu().numpy()
                 fins0 = fins0.cpu().numpy()
@@ -889,8 +884,7 @@ def _run_scan(
         chunk_idx += 1
         # Run chunk k+1, THEN sync chunk k: a stop() from chunk k's callbacks
         # discards chunk k+1 before any of its trials exist.
-        with torch.profiler.record_function(_TRACE_CHUNK), telemetry.span("scan.chunk"), \
-                flight.span("scan.chunk"):
+        with telemetry.span("scan.chunk"):
             if sparse:
                 out = _chunk_program_sparse(objective, space, dev, **program_kwargs)(
                     starts, Xb, yb, mb, n_dev, Zb, zyb, zmb, shifts, gumbels
@@ -935,7 +929,7 @@ def _sync_chunk(study, space, space_dict, pending, callbacks, ledger=None) -> No
     """Read one finished chunk back to the host, publish its device stats
     and commit its trials."""
     out, n_tell, ops, _n_new = pending
-    with torch.profiler.record_function(_TRACE_SYNC), telemetry.span("scan.sync"), flight.span("scan.sync"):
+    with telemetry.span("scan.sync"):
         xs_np = out.xs[:n_tell].cpu().numpy()
         vals_np = out.vals[:n_tell].cpu().numpy()
         _publish_chunk(out.stats)

@@ -98,9 +98,6 @@ if TYPE_CHECKING:
 
 _logger = get_logger(__name__)
 
-_TRACE_EXCHANGE = telemetry.trace_name("shard.exchange")
-
-
 # ------------------------------------------------------------ partition rules
 
 
@@ -503,8 +500,7 @@ class _PodSync:
         return None if backend is None else _PodSync(backend)
 
     def barrier(self) -> None:
-        with torch.profiler.record_function(_TRACE_EXCHANGE), telemetry.span("shard.exchange"), \
-                flight.span("shard.exchange"):
+        with telemetry.span("shard.exchange"):
             self._backend.exchange()
 
 

@@ -34,7 +34,7 @@ from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from optuna_tpu_torch import _tracing, device_stats, flight, telemetry
+from optuna_tpu_torch import device_stats, telemetry
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.distributions import BaseDistribution
 from optuna_tpu_torch.samplers._base import BaseSampler, _process_constraints_after_trial
@@ -52,12 +52,6 @@ _N_INCUMBENTS = 4
 _N_FANTASIES = 128
 _MAX_RUNNING = 8  # fantasized running trials, the most recent first kept
 _STABILIZING_NOISE = 1e-10
-
-# The ask-phase split (telemetry.PHASES): search-space build, surrogate fit
-# (or the fused programs' host packing) and proposal.
-_TRACE_SPACE = telemetry.trace_name("ask.search_space")
-_TRACE_FIT = telemetry.trace_name("ask.fit")
-_TRACE_PROPOSE = telemetry.trace_name("ask.propose")
 
 
 class GPSampler(BaseSampler):
@@ -178,7 +172,7 @@ class GPSampler(BaseSampler):
     def infer_relative_search_space(
         self, study: "Study", trial: FrozenTrial
     ) -> dict[str, BaseDistribution]:
-        with _tracing.annotate(_TRACE_SPACE), telemetry.span("ask.search_space"), flight.span("ask.search_space"):
+        with telemetry.span("ask.search_space"):
             search_space = {}
             for name, distribution in self._intersection_search_space.calculate(study).items():
                 if distribution.single():
@@ -246,7 +240,7 @@ class GPSampler(BaseSampler):
             score = raw_vals if study.direction == StudyDirection.MAXIMIZE else -raw_vals
             y, _, _ = _standardize(score)
             Xc, yc, counts = collapse_duplicate_rows(X, y)
-            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+            with telemetry.span("ask.fit"):
                 state, raw_params, fit_stats = fit_gp(
                     Xc,
                     yc.astype(np.float32),
@@ -291,7 +285,7 @@ class GPSampler(BaseSampler):
             ladder_rungs = ladder_rungs + cons_rungs
 
         extra = X[-min(len(X), _N_INCUMBENTS):]  # warm-start local search at recent incumbents
-        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+        with telemetry.span("ask.propose"):
             x_best, _ = optimize_acqf_mixed(
                 acqf_name,
                 data,
@@ -411,13 +405,13 @@ class GPSampler(BaseSampler):
         # The wall-clock split: "ask.fit" is the host packing of the fit's
         # inputs, "ask.propose" the one device program that fits and
         # proposes; its stats struct says what it spent its work on.
-        with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+        with telemetry.span("ask.fit"):
             dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
                 study, space, X, trials, warm, sig, seed, q=1
             )
         minimum_noise = 1e-7 if self._deterministic else 1e-5
         n_exact_max, _ = self._sparse_limits()
-        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+        with telemetry.span("ask.propose"):
             if n > n_exact_max:
                 args = (
                     starts, Xp, yp, dev.cat_mask, maskp, dev.sobol_base, inc,
@@ -485,13 +479,13 @@ class GPSampler(BaseSampler):
         from optuna_tpu_torch.gp.fused import gp_suggest_chain_fused
         from optuna_tpu_torch.gp.optim_mixed import snap_steps
 
-        with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+        with telemetry.span("ask.fit"):
             dev, (starts, Xp, yp, maskp, inc), shifts, gumbels, common, n, fit_iters = self._fused_args(
                 study, space, X, trials, warm, sig, seed, q=q, pad_extra=q
             )
         minimum_noise = 1e-7 if self._deterministic else 1e-5
         n_exact_max, _ = self._sparse_limits()
-        with _tracing.annotate(_TRACE_PROPOSE), telemetry.span("ask.propose"), flight.span("ask.propose"):
+        with telemetry.span("ask.propose"):
             if n > n_exact_max:
                 # The sparse program's chain tells each fantasy by an O(m^2)
                 # additive factor raise instead of an O(n^2) row append.
@@ -612,7 +606,7 @@ class GPSampler(BaseSampler):
         for k in range(M):
             yk, _, _ = _standardize(loss_vals[:, k])
             std_vals[:, k] = yk
-            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+            with telemetry.span("ask.fit"):
                 st, raw, fit_stats = fit_gp(
                     X,
                     yk.astype(np.float32),
@@ -655,7 +649,7 @@ class GPSampler(BaseSampler):
         states, thresholds, rungs = [], [], []
         for k in range(cons.shape[1]):
             yk, mu, sd = _standardize(cons[:, k])
-            with _tracing.annotate(_TRACE_FIT), telemetry.span("ask.fit"), flight.span("ask.fit"):
+            with telemetry.span("ask.fit"):
                 st, _, fit_stats = fit_gp(
                     X, yk.astype(np.float32), is_cat, seed=seed + 101 + k, device=self._device
                 )

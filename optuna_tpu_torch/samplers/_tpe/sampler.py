@@ -13,9 +13,11 @@ An ask past the startup trials: the split and the packing of the raw
 observations on the host; one host-to-device copy of one packed buffer
 (:func:`._kernels.upload_obs`); the draws from a ``torch.Generator`` seeded
 by the ask's host seed; the KDE build, draw, score and argmax as batched
-torch ops (:mod:`._kernels`); one read of the result. ``device`` (``None``:
-the card) is resolved at the first ask; nothing moves TPE to the CPU unless
-the caller passes ``device="cpu"``.
+torch ops (:mod:`._kernels`); one read of the result. The first half, from
+the history read through the upload, is the ``ask.fit`` phase; the second,
+from the draws through the read and the decode, is ``ask.propose``.
+``device`` (``None``: the card) is resolved at the first ask; nothing moves
+TPE to the CPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import TYPE_CHECKING, Any, Callable, Sequence
 import numpy as np
 import torch
 
+from optuna_tpu_torch import telemetry
 from optuna_tpu_torch._device import resolve_device
 from optuna_tpu_torch.distributions import BaseDistribution, CategoricalDistribution
 from optuna_tpu_torch.logging import get_logger
@@ -247,23 +250,25 @@ class TPESampler(BaseSampler):
             states: tuple = (TrialState.COMPLETE, TrialState.PRUNED, TrialState.RUNNING)
         else:
             states = (TrialState.COMPLETE, TrialState.PRUNED)
-        below_trials, above_trials = self._split(study, search_space, states, not self._constant_liar)
-        spec = self._univariate_space_spec(search_space)
-        below, above, seed = self._upload(study, spec, below_trials, above_trials)
-        p = self._parzen_estimator_parameters
-        dn, dc = len(spec["num_items"]), len(spec["cat_items"])
-        n_comp = below.log_w.shape[0]
-        args = (seed, dn, dc, self._n_ei_candidates, n_comp, spec["cat_cmax"], self.device)
-        if joint:
-            num_out, cat_out = _kernels.sample_and_score_from_obs(
-                below, above, spec["space"], _kernels.joint_draws(*args), p.consider_endpoints
-            )
-        else:
-            num_out, cat_out = _kernels.sample_univariate_from_obs(
-                below, above, spec["space"], _kernels.univariate_draws(*args), p.consider_endpoints
-            )
-        out = torch.cat([num_out, cat_out.to(num_out.dtype)]).cpu().numpy()  # the ask's one read
-        return self._decode(spec, out[:dn], out[dn:])
+        with telemetry.span("ask.fit"):
+            below_trials, above_trials = self._split(study, search_space, states, not self._constant_liar)
+            spec = self._univariate_space_spec(search_space)
+            below, above, seed = self._upload(study, spec, below_trials, above_trials)
+        with telemetry.span("ask.propose"):
+            p = self._parzen_estimator_parameters
+            dn, dc = len(spec["num_items"]), len(spec["cat_items"])
+            n_comp = below.log_w.shape[0]
+            args = (seed, dn, dc, self._n_ei_candidates, n_comp, spec["cat_cmax"], self.device)
+            if joint:
+                num_out, cat_out = _kernels.sample_and_score_from_obs(
+                    below, above, spec["space"], _kernels.joint_draws(*args), p.consider_endpoints
+                )
+            else:
+                num_out, cat_out = _kernels.sample_univariate_from_obs(
+                    below, above, spec["space"], _kernels.univariate_draws(*args), p.consider_endpoints
+                )
+            out = torch.cat([num_out, cat_out.to(num_out.dtype)]).cpu().numpy()  # the ask's one read
+            return self._decode(spec, out[:dn], out[dn:])
 
     def sample_relative_batch(
         self,
@@ -276,26 +281,29 @@ class TPESampler(BaseSampler):
         back to per-trial asks) during startup or for an empty space."""
         if not search_space:
             return None
-        states = (TrialState.COMPLETE, TrialState.PRUNED)
-        trials = study._get_trials(deepcopy=False, states=states, use_cache=False)
-        trials = [t for t in trials if all(p in t.params for p in search_space)]
-        if len(trials) < self._n_startup_trials:
-            return None
-        below_trials, above_trials = _split_trials(
-            study, trials, self._gamma(len(trials)), self._constraints_func is not None, device=self.device
-        )
-        p = self._parzen_estimator_parameters
-        spec = self._univariate_space_spec(search_space)
-        below, above, seed = self._upload(study, spec, below_trials, above_trials)
-        dn, dc = len(spec["num_items"]), len(spec["cat_items"])
-        draws = _kernels.joint_draws(
-            seed, dn, dc, max(self._n_ei_candidates, 4 * n), below.log_w.shape[0], spec["cat_cmax"], self.device
-        )
-        x_num, x_cat = _kernels.sample_and_score_topk_from_obs(
-            below, above, spec["space"], draws, n, p.consider_endpoints
-        )
-        out = torch.cat([x_num, x_cat.to(x_num.dtype)], dim=1).cpu().numpy()
-        return [self._decode(spec, row[:dn], row[dn:]) for row in out]
+        with telemetry.span("ask.fit") as fit:
+            states = (TrialState.COMPLETE, TrialState.PRUNED)
+            trials = study._get_trials(deepcopy=False, states=states, use_cache=False)
+            trials = [t for t in trials if all(p in t.params for p in search_space)]
+            if len(trials) < self._n_startup_trials:
+                fit.cancel()  # a start-up batch: no fit
+                return None
+            below_trials, above_trials = _split_trials(
+                study, trials, self._gamma(len(trials)), self._constraints_func is not None, device=self.device
+            )
+            spec = self._univariate_space_spec(search_space)
+            below, above, seed = self._upload(study, spec, below_trials, above_trials)
+        with telemetry.span("ask.propose"):
+            p = self._parzen_estimator_parameters
+            dn, dc = len(spec["num_items"]), len(spec["cat_items"])
+            draws = _kernels.joint_draws(
+                seed, dn, dc, max(self._n_ei_candidates, 4 * n), below.log_w.shape[0], spec["cat_cmax"], self.device
+            )
+            x_num, x_cat = _kernels.sample_and_score_topk_from_obs(
+                below, above, spec["space"], draws, n, p.consider_endpoints
+            )
+            out = torch.cat([x_num, x_cat.to(x_num.dtype)], dim=1).cpu().numpy()
+            return [self._decode(spec, row[:dn], row[dn:]) for row in out]
 
     # ------------------------------------------------------------ host side
 

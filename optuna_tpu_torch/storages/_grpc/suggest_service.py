@@ -724,7 +724,7 @@ class SuggestService:
         in-process token cache already dedupes same-process retries, and
         there is no successor to replicate for.
         """
-        with telemetry.span("serve.ask"), flight.span("serve.ask"):
+        with telemetry.span("serve.ask"):
             return self._ask_impl(study_id, trial_id, trial_number)
 
     def service_burn_verdict(self) -> dict:
@@ -875,7 +875,7 @@ class SuggestService:
         telemetry.set_gauge("serve.coalesce.width.last", len(batch))
         telemetry.max_gauge("serve.coalesce.width.max", len(batch))
         try:
-            with telemetry.span("serve.coalesce"), flight.span("serve.coalesce"):
+            with telemetry.span("serve.coalesce"):
                 for item in batch:
                     if item.flow is not None:
                         # Close every parked asker's fan-in arrow inside
@@ -1082,7 +1082,7 @@ class SuggestService:
         with handle.lock:
             if self.ready_ahead <= 0:
                 return 0
-            with telemetry.span("serve.ready_queue"), flight.span("serve.ready_queue"):
+            with telemetry.span("serve.ready_queue"):
                 self._fresh_trials_view(handle)
                 study, guarded = handle.study, handle.guarded
                 trials = study._get_trials(deepcopy=False, use_cache=False)

@@ -4,9 +4,10 @@
 One shared :class:`_RunBudget` hands out per-trial claims to however many
 workers exist (the sequential path is one worker; ``n_jobs`` threads share
 one budget), and each trial runs the ask → objective (under a heartbeat)
-→ tell pipeline as an :class:`_Outcome` value. Each phase is a telemetry
-span, a flight span and a profiler range (:func:`_tracing.annotate`); the
-trial's ask and tell are flight events; the health reporter and the
+→ tell pipeline as an :class:`_Outcome` value. Each phase is one
+``telemetry.span`` (its histogram, flight event and profiler range), and
+each trial's objective also sits in a per-trial profiler range
+(:func:`_tracing.annotate`); the trial's ask and tell are flight events; the health reporter and the
 autopilot attach at the run's entry, publish and step at every trial
 boundary, and the reporter flushes its final snapshot at the run's end.
 
@@ -39,11 +40,6 @@ if TYPE_CHECKING:
 
 _logger = logging_module.get_logger(__name__)
 
-# The profiler range names, derived from the telemetry phase names once, so
-# the per-trial hot path never builds a phase string.
-_TRACE_ASK = telemetry.trace_name("ask")
-_TRACE_DISPATCH = telemetry.trace_name("dispatch")
-_TRACE_TELL = telemetry.trace_name("tell")
 # The per-trial range: a %-format that _tracing.annotate formats only while
 # a profiler runs (a timeline grouping aid outside the phase vocabulary).
 _TRACE_TRIAL_FMT = "optuna_tpu_torch.trial.%d"
@@ -149,19 +145,18 @@ def _execute_one(
     if is_heartbeat_enabled(study._storage):
         fail_stale_trials(study)
 
-    with _tracing.annotate(_TRACE_ASK), telemetry.span("ask"), flight.span("ask"):
+    with telemetry.span("ask"):
         trial = study.ask()
     flight.trial_event("ask", trial.number)
     with get_heartbeat_thread(trial._trial_id, study._storage):
         with _tracing.annotate(_TRACE_TRIAL_FMT, trial.number):
-            with _tracing.annotate(_TRACE_DISPATCH), telemetry.span("dispatch"), \
-                    flight.span("dispatch", trial.number):
+            with telemetry.span("dispatch", trial.number):
                 outcome = _call_objective(func, trial)
 
     # Misbehaving objectives (wrong arity, NaNs, non-floats) downgrade to
     # warnings via _tell_with_warning rather than aborting the whole loop.
     try:
-        with _tracing.annotate(_TRACE_TELL), telemetry.span("tell"), flight.span("tell", trial.number):
+        with telemetry.span("tell", trial.number):
             frozen = _tell_with_warning(
                 study=study,
                 trial=trial,

@@ -1,14 +1,19 @@
 """Telemetry: host-side metrics for the study loop and its containment (port
-of ``optuna_tpu/telemetry.py``; standard library only).
+of ``optuna_tpu/telemetry.py``; the standard library, and torch for the
+profiler range of a phase span).
 
 * :class:`MetricsRegistry` — counters, gauges, and monotonic-clock
   histograms with fixed log-spaced buckets; the clock is injectable so
   tests assert timings without real waiting.
-* ``span(name)`` — a context manager timing one phase of the study loop
-  into the ``phase.<name>`` histogram. Phase names come from the
-  :data:`PHASES` vocabulary; :func:`trace_name` gives the same phase's
-  ``torch.profiler`` range name (:mod:`optuna_tpu_torch._tracing`), so
-  profiler timelines and metrics histograms line up one-to-one.
+* ``span(name)`` — the one timer of a program phase. It reads the clock
+  once on entry and once on exit, and that one interval feeds every
+  consumer that is on: the ``phase.<name>`` histogram, the SLO phase sink
+  and the flight ring (a ``phase`` event with its parent span and its
+  batch tag); while a profiler runs, the ``optuna_tpu_torch.<name>``
+  range (:func:`trace_name`) is open inside the same interval. Phase
+  names come from the :data:`PHASES` vocabulary, so histograms, flight
+  events and profiler ranges line up name for name and interval for
+  interval.
 * ``count(name)`` — containment counters (:data:`COUNTERS` vocabulary).
 * Exports — :func:`snapshot` and :func:`export_snapshot` (JSON-able dicts,
   the latter also ``Study.telemetry_snapshot()``), :func:`render_prometheus`
@@ -19,10 +24,11 @@ of ``optuna_tpu/telemetry.py``; standard library only).
 Telemetry is **off** by default, and the disabled hot path is module-global
 checks only: ``count`` returns immediately (after offering the event to the
 flight recorder's sink when one is hooked) and ``span`` returns a shared
-singleton null context, so a disabled study loop allocates nothing per
-trial on this module's account. Instrumentation is strictly host-side and
-never reads a device value. Enable with ``OPTUNA_TPU_TORCH_TELEMETRY=1`` in
-the environment, or :func:`enable` / :func:`disable` at runtime.
+singleton null context while no consumer is on and no profiler runs, so a
+disabled study loop allocates nothing per trial on this module's account.
+Instrumentation is strictly host-side and never reads a device value.
+Enable with ``OPTUNA_TPU_TORCH_TELEMETRY=1`` in the environment, or
+:func:`enable` / :func:`disable` at runtime.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import threading
 import time
 from typing import Callable, Iterator, Mapping
 
-from optuna_tpu_torch import locksan
+import torch
+
+from optuna_tpu_torch import _tracing, locksan
 
 __all__ = [
     "BUCKET_BOUNDS",
@@ -41,6 +49,7 @@ __all__ = [
     "HistogramState",
     "PHASES",
     "MetricsRegistry",
+    "PORT_PHASES",
     "add_gauge",
     "count",
     "disable",
@@ -65,9 +74,17 @@ __all__ = [
 
 # ------------------------------------------------------------- vocabulary
 
+#: Phases of the port that the reference does not time: parts of its
+#: ``ask`` and ``dispatch`` spans, each inside one of them.
+PORT_PHASES: dict[str, str] = {
+    "ask.create": "the batch's trial creation (Study.ask_batch) inside the batch executor's ask",
+    "ask.suggest": "the batch executor's per-trial suggestion loop: each trial's parameters written, its dispatch tagged",
+    "dispatch.wait": "the host blocked in a dispatch's one read of its results (.cpu()), waiting for the card",
+}
+
 #: The study-loop phase vocabulary: every ``span()`` name draws from it,
 #: spelled ``phase.<phase>`` in metrics and ``optuna_tpu_torch.<phase>`` on
-#: the profiler timeline. The names are the reference's.
+#: the profiler timeline. The reference's names, then :data:`PORT_PHASES`.
 PHASES: dict[str, str] = {
     "ask": "trial creation + parameter suggestion (Study.ask / ask_batch)",
     "ask.search_space": "relative search-space construction inside the sampler",
@@ -84,6 +101,7 @@ PHASES: dict[str, str] = {
     "serve.ready_queue": "one speculative ask-ahead refill dispatch (background, off the RPC path)",
     "ckpt.write": "one best-effort durable checkpoint write at a loop boundary (encode + attr write)",
     "ckpt.restore": "one resume's checkpoint validation + carry reconstruction (load, verify, rebuild)",
+    **PORT_PHASES,
 }
 
 #: The containment-counter vocabulary: one entry per event family the
@@ -227,6 +245,9 @@ class _NullSpan:
         return self
 
     def __exit__(self, *exc: object) -> None:
+        return None
+
+    def cancel(self) -> None:
         return None
 
 
@@ -464,6 +485,12 @@ _enabled = bool(os.environ.get("OPTUNA_TPU_TORCH_TELEMETRY"))
 #: the disabled hot path at module-global checks with no allocations.
 _count_sink: Callable[[str, int, dict | None], None] | None = None
 
+#: The flight recorder while flight recording is on (hooked by
+#: :func:`optuna_tpu_torch.flight.enable`), else None: a phase span then
+#: also lands in its ring, parented on the innermost span open on the
+#: thread.
+_flight_recorder = None
+
 #: Optional phase-duration sink the SLO engine (:mod:`optuna_tpu_torch.slo`)
 #: hooks into :func:`span`/:func:`observe_phase`: every timed phase also
 #: feeds the streaming quantile sketches and burn windows, with zero new
@@ -483,27 +510,88 @@ def _set_phase_sink(sink: Callable[[str, float], None] | None) -> None:
     _phase_sink = sink
 
 
+def _set_flight_recorder(recorder) -> None:
+    global _flight_recorder
+    _flight_recorder = recorder
+
+
+#: Per thread, the phase spans open while flight records: ``(span id,
+#: batch tag)`` from the outermost in.
+_open = threading.local()
+
+
+def _open_spans() -> list:
+    stack = getattr(_open, "spans", None)
+    if stack is None:
+        stack = _open.spans = []
+    return stack
+
+
 class _PhaseSpan:
-    """The module-level span: times one block into the enabled registry AND
-    the hooked phase sink. Constructed only when at least one consumer is
-    on — the disabled path stays the shared :data:`_NULL_SPAN` singleton."""
+    """One phase, timed once. The interval between its two reads of the
+    registry's clock feeds the ``phase.<name>`` histogram (telemetry on),
+    the SLO phase sink (hooked) and the flight ring (flight on: the start
+    anchored to Unix time by the recorder's epoch, as the profiler stamps
+    its events); the profiler range, while one runs, opens and closes
+    inside it. Built only when at least one of them is on — otherwise
+    :func:`span` returns the shared :data:`_NULL_SPAN`."""
 
-    __slots__ = ("_name", "_start")
+    __slots__ = (
+        "_name", "_trial", "_tag", "_observe", "_clock", "_start", "_range", "_recorder", "_id", "_parent",
+        "_cancelled",
+    )
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, trial: int | None, tag: str | None, observe: bool) -> None:
         self._name = name
+        self._trial = trial
+        self._tag = tag
+        self._observe = observe
+        self._cancelled = False
 
     def __enter__(self) -> "_PhaseSpan":
-        self._start = _REGISTRY._clock()
+        recorder = self._recorder = _flight_recorder
+        if recorder is not None:
+            stack = _open_spans()
+            self._parent = None
+            if stack:
+                self._parent, parent_tag = stack[-1]
+                if self._tag is None:
+                    self._tag = parent_tag
+            self._id = recorder.new_span_id()
+            stack.append((self._id, self._tag))
+        self._clock = _REGISTRY._clock
+        self._start = self._clock()
+        self._range = None
+        if _tracing.profiling():
+            self._range = torch.profiler.record_function(trace_name(self._name))
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc: object) -> None:
-        seconds = _REGISTRY._clock() - self._start
-        if _enabled:
-            _REGISTRY.observe(_PHASE_METRIC_PREFIX + self._name, seconds)
-        sink = _phase_sink
-        if sink is not None:
-            sink(self._name, seconds)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        seconds = self._clock() - self._start
+        recorder = self._recorder
+        if recorder is not None:
+            _open_spans().pop()
+        if self._cancelled:
+            return
+        if self._observe:
+            if _enabled:
+                _REGISTRY.observe(_PHASE_METRIC_PREFIX + self._name, seconds)
+            sink = _phase_sink
+            if sink is not None:
+                sink(self._name, seconds)
+        if recorder is not None:
+            recorder.record(
+                "phase", self._name, ts=self._start + recorder._epoch, dur=seconds, trial=self._trial,
+                span=self._id, parent=self._parent, meta=None if self._tag is None else {"batch": self._tag},
+            )
+
+    def cancel(self) -> None:
+        """The block turned out to do none of its phase's work: nothing is
+        observed or recorded (a range already open still closes)."""
+        self._cancelled = True
 
 
 def get_registry() -> MetricsRegistry:
@@ -556,10 +644,12 @@ def observe_phase(name: str, seconds: float) -> None:
     """Record one already-measured duration into the ``phase.<name>``
     histogram — for call sites that must stitch one *logical* phase across
     non-contiguous code blocks (the batch executor's ask spans the batch
-    creation AND the in-heartbeat suggestion loop), where two ``span()``
-    blocks would double the phase's count and halve its per-op latency.
-    A hooked phase sink (the SLO engine) receives the observation even
-    while the registry is off."""
+    creation AND the in-heartbeat suggestion loop). Each block is then a
+    ``span(name, observe=False)``, which gives the profiler range and the
+    flight event but no observation, and the blocks' summed time is
+    observed here once: two observing spans would double the phase's count
+    and halve its per-op latency. A hooked phase sink (the SLO engine)
+    receives the observation even while the registry is off."""
     if _enabled:
         _REGISTRY.observe(_PHASE_METRIC_PREFIX + name, seconds)
     sink = _phase_sink
@@ -587,14 +677,24 @@ def max_gauge(name: str, value: float) -> None:
     _REGISTRY.max_gauge(name, value)
 
 
-def span(name: str):
-    """Time a ``with`` block into the ``phase.<name>`` histogram (and the
-    hooked SLO phase sink). Returns a shared do-nothing singleton while
-    both consumers are off — the hot path pays two global checks and
-    allocates nothing."""
-    if not _enabled and _phase_sink is None:
+def span(name: str, trial: int | None = None, *, tag: str | None = None, observe: bool = True):
+    """Time a ``with`` block as the phase ``name`` (a :data:`PHASES` entry):
+    one interval, read once on entry and once on exit, feeds the
+    ``phase.<name>`` histogram, the hooked SLO phase sink and the flight
+    ring, each only while it is on; the ``optuna_tpu_torch.<name>``
+    profiler range is open inside it while a profiler runs.
+
+    The flight event carries ``trial``, the span's parent (the innermost
+    span open on this thread) and ``tag`` under ``meta["batch"]`` (by
+    default its parent's: the batch executor tags each batch's spans, and
+    the sampler's spans inside them inherit it). ``observe=False`` leaves
+    the histogram and the SLO sink to one :func:`observe_phase` for a phase
+    stitched from several blocks. Returns a shared do-nothing singleton
+    while every consumer is off and no profiler runs: the hot path pays a
+    few global checks and allocates nothing."""
+    if not _enabled and _phase_sink is None and _flight_recorder is None and not _tracing.profiling():
         return _NULL_SPAN
-    return _PhaseSpan(name)
+    return _PhaseSpan(name, trial, tag, observe)
 
 
 def snapshot() -> dict:

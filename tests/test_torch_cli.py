@@ -12,6 +12,7 @@ card, and raises on a machine without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -168,6 +169,17 @@ def observability_state():
     pairs = ((rt, rf, rs), (pt, pf, ps))
     saved = [(t.get_registry(), t.enabled(), f.get_recorder(), f.enabled(), s.enabled(), s.get_engine())
              for t, f, s in pairs]
+    def phase(t, f, name, trial=None):
+        # The port times a phase with one span, which feeds its histogram
+        # and its flight ring; the reference, with a flight span and a
+        # telemetry span side by side.
+        if t is pt:
+            return t.span(name, trial)
+        stack = contextlib.ExitStack()
+        stack.enter_context(f.span(name, trial))
+        stack.enter_context(t.span(name))
+        return stack
+
     for t, f, s in pairs:
         clock = _Clock()
         t.enable(t.MetricsRegistry(clock=clock))
@@ -175,13 +187,13 @@ def observability_state():
         s.enable(clock=clock)
         f.reset_jit_totals()
         for i in range(6):
-            with f.span("ask"), t.span("ask"):
+            with phase(t, f, "ask"):
                 clock.t += 0.002 * (i + 1)
             f.trial_event("ask", i)
-            with f.span("dispatch", i), t.span("dispatch"):
+            with phase(t, f, "dispatch", i):
                 clock.t += 0.25
             t.count("sampler.fallback.relative" if i % 2 else "storage.retry")
-            with f.span("tell", i), t.span("tell"):
+            with phase(t, f, "tell", i):
                 clock.t += 0.01
             f.trial_event("tell", i, "COMPLETE")
             clock.t += 7.0

@@ -355,6 +355,8 @@ REGISTRY_DIFFERENCES = {
     "DEVICE_MODULE_PATHS": "the hand-written CUDA kernels' wrappers live in ops/kernels/, in place of ops/pallas/",
     "DEVICE_PROGRAMS": "an eager package has no jit to find its device programs from, so they are named",
     "NOT_APPLICABLE_RULES": "TPU002 (jit recompile hazard) has no eager counterpart",
+    "TELEMETRY_PHASE_REGISTRY": "the mirror of the port's telemetry.PHASES: the reference's phases (scan.chunk and "
+    "scan.sync described as the eager chunk runs) and the port's own, telemetry.PORT_PHASES",
 }
 
 
@@ -379,6 +381,11 @@ def test_registry_equals_the_references_but_for_listed_differences():
         if name in REGISTRY_DIFFERENCES:
             continue
         assert getattr(lint_registry, name) == _retarget(getattr(ref_registry, name)), name
+    from optuna_tpu_torch import telemetry
+
+    assert lint_registry.TELEMETRY_PHASE_REGISTRY.keys() == (
+        ref_registry.TELEMETRY_PHASE_REGISTRY.keys() | telemetry.PORT_PHASES.keys()
+    )
     assert lint_registry.DEVICE_MODULE_PATHS == tuple(
         p.replace("ops/pallas/", "ops/kernels/") for p in _retarget(ref_registry.DEVICE_MODULE_PATHS)
     )
