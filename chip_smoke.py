@@ -22,7 +22,12 @@ Phases (any failure exits non-zero and prints no result line):
    on the hypervolume path) bit for bit and node for node against the
    plain stack loop on the card, at the 512-point root, the fronts of
    32 and 64 that phase 17 times, and the (512, 17, 5) candidate roots of
-   the HSSP's first greedy step (phase 21).
+   the HSSP's first greedy step (phase 21); config #5's head kernel (K4)
+   at the benchmark cell's shape (60,000 rows, 256 trials x hidden 32),
+   one step and the loss alone, with its plain version against the plain
+   version in float64, beside the two products around it, and its
+   launches a config #5 call: one a step and one for the loss on the
+   index loss, none on the one-hot loss or in float64.
 3. A small sparse reduction on the card against the same code on the CPU,
    and the device Sobol tier (``ops/qmc.py::sobol_sample_device``, plain
    torch) at (2048, 20): unshifted, SciPy's ``scramble=False`` points bit
@@ -284,7 +289,8 @@ there. Their seconds are the helper's, beside the card's work.
 The kernel launch counters are set to 0 just before each path (phases 4-5,
 6, 7, 9-11, 12-15, 16, 18-19, 20-21, 22, 23, 24, 25-28, 29-30, 31, 32, 33, 34, 35, 36) and
 read just after it; every kernel must have launched on its path, the
-single-objective TPE, CMA-ES and config #5 phases none, K3 exactly twice on
+single-objective TPE and CMA-ES phases none, the config #5 phases 29-30
+K4 and no other kernel, K3 exactly twice on
 phase 7 and 16 times on phase 21, K1 exactly twice on phase 31 and once a
 chunk and a swap-in on phase 32, K1 and K3 exactly as counted on phase 33
 (no other kernel), K1 exactly as its spy counts on phase 34, K1 once a
@@ -349,6 +355,12 @@ KERNELS = [
         "counter": "STACK_LAUNCHES",
         "source": "optuna_tpu_torch/ops/kernels/csrc/wfg_limit_filter.cu",
         "replaces": "optuna_tpu/ops/pallas/wfg.py:40",
+    },
+    {
+        "name": "mlp_head",
+        "module": "optuna_tpu_torch.ops.kernels.mlp_head",
+        "source": "optuna_tpu_torch/ops/kernels/csrc/mlp_head.cu",
+        "replaces": "none: the reference's trainer is plain jnp (optuna_tpu/models/mlp.py)",
     },
 ]
 KERNEL = {k["name"]: k for k in KERNELS}
@@ -3135,6 +3147,94 @@ def phase_mlp(gpu: str) -> dict:
     return out
 
 
+HEAD_ROWS, HEAD_TRIALS, HEAD_HIDDEN = 60_000, 256, 32  # the benchmark cell: MNIST's training split, batches of 256
+HEAD_TOL = 1e-5  # K4 and its plain float32 version against float64, over each output's largest magnitude
+
+
+def phase_mlp_head(device) -> dict:
+    """K4, config #5's head in the wide layout, at the benchmark cell's
+    shape: ``Z = X @ W1`` of 60,000 uniform 784-pixel rows and 256 scaled
+    copies of a 784-32-10 network. One step (losses, the small gradients,
+    ``lr * dH`` over ``Z``) and the loss alone, the kernel and its plain
+    float32 version against the plain version in float64 on the card;
+    device times of both modes, of the plain version and of the two
+    products around the head; then the head's launches a config #5 call."""
+    import torch
+
+    from optuna_tpu_torch.models.mlp import MLPParams, wide_params
+    from optuna_tpu_torch.ops.kernels import mlp_head
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    n, trials, hidden = HEAD_ROWS, HEAD_TRIALS, HEAD_HIDDEN
+    x = torch.rand((n, 784), generator=gen, device=device)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=device) * 0.1  # noqa: E731
+    base = MLPParams(normal(784, hidden), normal(hidden), normal(hidden, 10), normal(10))
+    scale = 0.3 + 2.7 * torch.rand(trials, generator=gen, device=device)
+    lr = torch.exp(torch.rand(trials, generator=gen, device=device) * math.log(1e-3))
+    labels = torch.randint(0, 10, (n,), generator=gen, device=device)
+    p = wide_params(base, scale)
+    z = x @ p.w1
+    out = {}
+    for label, dtype, step, loss in (
+        ("kernel", torch.float32, mlp_head.head_step, mlp_head.head_loss),
+        ("plain", torch.float32, mlp_head.head_step_plain, mlp_head.head_loss_plain),
+        ("f64", torch.float64, mlp_head.head_step_plain, mlp_head.head_loss_plain),
+    ):
+        zz = z.to(dtype, copy=True)
+        ops = [t.to(dtype) for t in (p.b1, p.w2, p.b2)]
+        alone = loss(zz, *ops, labels)
+        grads = step(zz, *ops, labels, lr.to(dtype))
+        out[label] = [alone, *grads, zz]
+        del zz, ops, grads
+    ref = out.pop("f64")
+    errs = {}
+    for label, got in out.items():
+        errs[label] = max(float((g.double() - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+    del out, ref
+    if not errs["kernel"] <= HEAD_TOL or not errs["plain"] <= HEAD_TOL:
+        fail(f"mlp_head at ({n}, {trials} x {hidden}): errors against float64 {errs}, allowed {HEAD_TOL}")
+
+    work = z.clone()
+    step_ms = graph_ms(lambda: mlp_head.head_step(work, p.b1, p.w2, p.b2, labels, lr))
+    loss_ms = graph_ms(lambda: mlp_head.head_loss(z, p.b1, p.w2, p.b2, labels))
+    plain_ms = cuda_ms(lambda: mlp_head.head_step_plain(work, p.b1, p.w2, p.b2, labels, lr), reps=3)
+    forward_ms = graph_ms(lambda: torch.matmul(x, p.w1, out=work), per_graph=4, reps=5)
+    wgrad_ms = graph_ms(lambda: p.w1.addmm_(x.t(), work, alpha=-1), per_graph=4, reps=5)
+    del work
+    gemm_flops = 2 * n * 784 * trials * hidden
+    n_bytes = 2 * 4 * n * trials * hidden + 8 * n  # Z read, dH written, labels read
+    n_ops = 6 * n * trials * hidden * 10  # logits, dh and dW2: a multiply-add each of H x O a pair
+    row = kernel_row("mlp_head", errs["kernel"], step_ms, plain_ms, n_bytes, n_ops)
+
+    args = {k: torch.from_numpy(v).to(device) for k, v in zip(("lr", "init_scale"), (
+        np.exp(np.random.default_rng(5).uniform(np.log(1e-3), 0.0, MLP_BATCH)).astype(np.float32),
+        np.random.default_rng(6).uniform(0.3, 3.0, MLP_BATCH).astype(np.float32)))}
+    per_call = {}
+    for label, fn in (
+        ("index loss", mlp_objective_fn(device)),
+        ("one-hot loss", sharded_mlp_parts(device)[1]),
+        ("float64", mlp_objective_fn(device, torch.float64)),
+    ):
+        before = mlp_head.LAUNCHES
+        fn(args)
+        torch.cuda.synchronize()
+        per_call[label] = mlp_head.LAUNCHES - before
+    want = {"index loss": MLP_STEPS + 1, "one-hot loss": 0, "float64": 0}
+    if per_call != want:
+        fail(f"mlp_head launched {per_call} times a config #5 call, expected {want}")
+    print(
+        f"mlp_head at ({n}, {trials} x {hidden}): largest error against float64 over the output's largest magnitude "
+        f"kernel {errs['kernel']:.3e}, plain float32 {errs['plain']:.3e} (allowed {HEAD_TOL}); one step "
+        f"{step_ms:.4f} ms, the loss alone {loss_ms:.4f} ms (device time, CUDA graph); bound {row['bound_ms']:.4f} ms "
+        f"a step ({row['bound_by']}: {n_bytes} B; {n_ops} FLOP), the loss alone "
+        f"{(n_bytes / 2) / HBM_BYTES_PER_S * 1e3:.4f} ms; plain version {plain_ms:.3f} ms a step (CUDA events, "
+        f"median of 3); around it X @ W1 {forward_ms:.3f} ms and W1 -= X^T dH {wgrad_ms:.3f} ms "
+        f"({gemm_flops / (forward_ms * 1e-3) / 1e12:.1f} and {gemm_flops / (wgrad_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32}); launches a config #5 call {per_call}"
+    )
+    return row
+
+
 SHARDED_BATCH, SHARDED_WARMUP, SHARDED_TIMED = 256, 256, 512  # phase 36(a): bench.py --loop=sharded at 1 x 1
 SHARDED_RULES = [("w1", (None, "model")), ("b1", ("model",)), ("w2", ("model", None)), (".*", ())]
 POD_RANKS, POD_BATCH, POD_BATCHES = 2, 16, 4  # phase 36(b): {'trials': 2, 'model': 1}, 4 batches of 16
@@ -4847,7 +4947,7 @@ def main() -> None:
     # and timings) with the launches the paths made of them: none.
     rows = [
         phase_matern(device), phase_nds(device), phase_nds_rank(device), phase_wfg_kernel(device),
-        phase_wfg_stack(device),
+        phase_wfg_stack(device), phase_mlp_head(device),
     ]
     hssp_stack_check(device)
     phase_small_sparse(device)
@@ -4930,7 +5030,7 @@ def main() -> None:
     reset()
     mlp5 = phase_mlp(gpu)
     phase_containment()
-    batch_counts = counts()  # config #5's TPE and MLP and the containment cases run no kernel of the repo
+    batch_counts = counts()  # config #5's trainer runs the head kernel; its TPE and the containment cases none
     reset()
     gp_batches = phase_gp_batches(k1_count)
     gp_batch_counts = counts()
@@ -4970,8 +5070,8 @@ def main() -> None:
         fail(f"phase 33 launched {analysis_counts}, expected {want_analysis}")
     if resume_counts["matern52_gram"] != resume["k1"] or any(v for k, v in resume_counts.items() if k != "matern52_gram"):
         fail(f"phase 32 launched {resume_counts}, expected K1 {resume['k1']} and no other kernel")
-    if any(batch_counts.values()):
-        fail(f"phases 29-30 launched kernels of the repo: {batch_counts}")
+    if batch_counts["mlp_head"] < 1 or any(v for k, v in batch_counts.items() if k != "mlp_head"):
+        fail(f"phases 29-30 launched {batch_counts}, expected the head kernel and no other")
     if gp_batch_counts["matern52_gram"] != GP_BATCHES or any(v for k, v in gp_batch_counts.items() if k != "matern52_gram"):
         fail(f"phase 31 launched {gp_batch_counts}, expected K1 {GP_BATCHES} and no other kernel")
     k1_rest = (chain["sparse"]["k1"] + chain["sparse"]["k1_batch"] + running["sparse"]["k1"]
@@ -4990,6 +5090,7 @@ def main() -> None:
         + motpe3_counts["nds_rank"],
         "wfg_stack": hv["wfg_stack"] + runtime["wfg_stack"] + hssp_counts["wfg_stack"] + nsga3_counts["wfg_stack"]
         + motpe3_counts["wfg_stack"] + analysis_counts["wfg_stack"],
+        "mlp_head": batch_counts["mlp_head"],
     }
     print(
         f"launches on the paths: {launches} (GP exact {after_exact}, sparse {sparse_launches} over "

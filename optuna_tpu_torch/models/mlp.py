@@ -17,6 +17,16 @@ the counterpart of the reference's ``jax.vmap(value_and_grad(...))``.
 form ``bench.py``'s sharded loop writes it (one-hot labels,
 ``logsumexp``), in operations that also run on ``DTensor`` s, so that one
 function serves a ``ShardedObjective`` and its mesh-less twin.
+
+With plain tensors, integer labels and :func:`cross_entropy`,
+:func:`train_scaled_batch` trains in the **wide layout** instead
+(:func:`wide_params`, :func:`wide_sgd_step`): every trial's first layer
+is one column block of ``w1`` of shape ``(in, B*hidden)``, so a step is
+one ``(N, in) @ (in, B*hidden)`` product, the head
+(``ops/kernels/mlp_head.py``: the hand-written kernel on the card, its
+plain version on the CPU) and one ``X^T @ dH`` product for all trials.
+Same arithmetic in the same precision; only the order of summation
+differs.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from optuna_tpu_torch.ops.kernels import mlp_head
 
 
 class MLPParams(NamedTuple):
@@ -138,9 +150,70 @@ def train_scaled_batch(
     sharded loop's objective (``bench.py::_sharded_mlp_objective``); every
     operand may then be a ``DTensor`` on one mesh (``base`` sharded by
     partition rules, ``lr``/``init_scale`` along the batch), and the
-    operations are the same either way."""
+    operations are the same either way.
+
+    Plain tensors with integer labels and ``loss=cross_entropy`` train in
+    the wide layout (:func:`wide_sgd_step`), on the CPU in any dtype and on
+    the card in float32 at the head kernel's widths; everything else takes
+    autograd's batched path."""
+    if _wide(base, x, y, lr, init_scale, loss):
+        with torch.no_grad():
+            params = wide_params(base, init_scale)
+            y, lr = y.long(), lr.to(x.dtype)
+            z = torch.empty((x.shape[0], params.w1.shape[1]), dtype=x.dtype, device=x.device)
+            for _ in range(n_steps):
+                wide_sgd_step(params, x, y, lr, z)
+            torch.matmul(x, params.w1, out=z)
+            return mlp_head.head_loss(z, params.b1, params.w2, params.b2, y)
     scale = init_scale.to(base.w1.dtype)
     start = MLPParams(*(p.unsqueeze(0) * scale.reshape((-1,) + (1,) * p.dim()) for p in base))
     params, _ = train_mlp(start, x, y, lr.to(base.w1.dtype), n_steps, loss)
     with torch.no_grad():
         return loss(mlp_forward(params, x), y)
+
+
+def _wide(base: MLPParams, x, y, lr, init_scale, loss: Loss) -> bool:
+    """Whether :func:`train_scaled_batch` takes the wide layout, from what
+    its inputs show: plain tensors (no ``DTensor``), one unbatched network,
+    integer labels, :func:`cross_entropy`; on the card float32 at widths
+    the head kernel is built for."""
+    if loss is not cross_entropy or any(type(t) is not torch.Tensor for t in (*base, x, y, lr, init_scale)):
+        return False
+    if base.w1.dim() != 2 or y.dim() != 1 or y.is_floating_point() or x.dtype != base.w1.dtype:
+        return False
+    if x.device.type == "cpu":
+        return True
+    return x.dtype == torch.float32 and x.device.type == "cuda" and mlp_head.supports(*base.w2.shape)
+
+
+def wide_params(base: MLPParams, init_scale: torch.Tensor) -> MLPParams:
+    """Trial ``i``'s network ``base * init_scale[i]`` for every trial, in the
+    wide layout: ``w1`` ``(in, B*hidden)`` with trial ``i`` in columns
+    ``i*hidden:(i+1)*hidden``, ``b1`` ``(B, hidden)``, ``w2`` ``(B, hidden,
+    out)``, ``b2`` ``(B, out)``. The products are those of the batched
+    start, so both layouts begin from the same bits."""
+    scale = init_scale.to(base.w1.dtype)
+    n_in = base.w1.shape[0]
+    return MLPParams(
+        w1=(base.w1.unsqueeze(1) * scale.reshape(1, -1, 1)).reshape(n_in, -1),
+        b1=base.b1 * scale.reshape(-1, 1),
+        w2=base.w2 * scale.reshape(-1, 1, 1),
+        b2=base.b2 * scale.reshape(-1, 1),
+    )
+
+
+def wide_sgd_step(
+    params: MLPParams, x: torch.Tensor, y: torch.Tensor, lr: torch.Tensor, z: torch.Tensor
+) -> torch.Tensor:
+    """One full-batch SGD step of every trial of ``params`` (wide layout, see
+    :func:`wide_params`), in place, on the cross-entropy against int64
+    labels ``y``; returns the losses before the step, ``(B,)``. ``z`` is
+    an ``(N, B*hidden)`` buffer: ``X @ W1``, then ``lr * dH`` written over
+    it by the head, then ``W1 -= X^T (lr * dH)`` as one in-place product."""
+    torch.matmul(x, params.w1, out=z)
+    grads = mlp_head.head_step(z, params.b1, params.w2, params.b2, y, lr)
+    params.w1.addmm_(x.t(), z, alpha=-1)
+    params.w2.sub_(lr.reshape(-1, 1, 1) * grads.w2)
+    params.b2.sub_(lr.reshape(-1, 1) * grads.b2)
+    params.b1.sub_(lr.reshape(-1, 1) * grads.b1)
+    return grads.loss

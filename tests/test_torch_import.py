@@ -153,7 +153,7 @@ def test_the_gp_modules_are_among_those_checked():
     assert set(GP_MODULES) <= set(_all_modules())
 
 
-@pytest.mark.parametrize("module", ["matern", "nds", "wfg"])
+@pytest.mark.parametrize("module", ["matern", "nds", "wfg", "mlp_head"])
 def test_every_kernel_wrapper_counts_launches_and_names_its_source(module):
     import importlib
 

@@ -22,9 +22,20 @@ relative for the batched losses, with margin for other BLAS builds):
   ``RandomSampler`` on both packages: params bit for bit, values
   ``BATCH_RTOL`` relative.
 
-The test marked ``cuda`` holds one batch of 256 at config #5's full width
+``train_scaled_batch`` trains these in the wide layout (``wide_params``,
+``wide_sgd_step`` around the head of ``ops/kernels/mlp_head.py``); one
+wide step is held to autograd's batched ``sgd_step`` at ``WIDE_ATOL``
+(float32 ``STEP_ATOL``; float64 1e-12), at a row count that fills the
+head kernel's chunks and tiles and at one that does not. The one-hot
+loss keeps autograd's path and never reaches the head.
+
+The tests marked ``cuda`` hold one batch of 256 at config #5's full width
 (784 inputs, hidden 32, 256 examples) on the card against CPU torch in
-float64, within ``CARD_F64_RTOL`` plus twice CPU float32's own error.
+float64, within ``CARD_F64_RTOL`` plus twice CPU float32's own error; the
+head kernel against its plain version in float32 and float64 on the card,
+within ``HEAD_TOL`` of each output's largest magnitude; and the head's
+launches a call: one a step and one for the final loss on the index
+loss, none on the one-hot loss or in float64.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import optuna_tpu
 import optuna_tpu.parallel
 import optuna_tpu_torch
 from optuna_tpu_torch.models import mlp
+from optuna_tpu_torch.ops.kernels import mlp_head
 from tests._torch_port import cuda_device, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -51,6 +63,10 @@ BATCH_RTOL = 1e-5
 # rate near 1 amplify float32 rounding ("NVIDIA H100 80GB HBM3, 700.00 W", random draws: card 5.0e-4
 # and CPU float32 4.6e-4 from float64; a TPE-chosen trial: 2.5e-4 and 1.24e-2).
 CARD_F64_RTOL = 1e-3
+WIDE_ATOL = {torch.float32: STEP_ATOL, torch.float64: 1e-12}
+# The head kernel and its float32 plain version against the plain version in
+# float64 on the card, each output's largest error over its largest magnitude.
+HEAD_TOL = 1e-5
 N_IN, N_HIDDEN, N_OUT, N_EXAMPLES, N_STEPS = 64, 8, 10, 32, 10
 
 
@@ -261,3 +277,106 @@ def test_config5_batch_on_the_card_matches_cpu_torch(cuda_device):
     card, cpu32, cpu64 = out
     assert np.isfinite(card).all()
     assert np.all(np.abs(card - cpu64) <= CARD_F64_RTOL * np.abs(cpu64) + 2.0 * np.abs(cpu32 - cpu64))
+
+
+def _batched_start(base: mlp.MLPParams, scale: torch.Tensor) -> mlp.MLPParams:
+    return mlp.MLPParams(*(p.unsqueeze(0) * scale.reshape((-1,) + (1,) * p.dim()) for p in base))
+
+
+@pytest.mark.parametrize("n_rows", [2 * mlp_head.CHUNK_ROWS, mlp_head.CHUNK_ROWS + 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_wide_step_matches_autograds_batched_step(dtype, n_rows):
+    """Both layouts start from the same bits; one wide step of 8 trials (the
+    head's plain version between the two products) gives autograd's new
+    parameters and losses."""
+    x, y, init = _problem(n_batch=n_rows)
+    lr, scale = _draws(8)
+    base = mlp.MLPParams(*(p.to(dtype) for p in mlp.mlp_params_from_numpy(init, "cpu")))
+    tx, ty = torch.from_numpy(x).to(dtype), torch.from_numpy(y).long()
+    tlr, tscale = torch.from_numpy(lr).to(dtype), torch.from_numpy(scale)
+    wide = mlp.wide_params(base, tscale)
+    batched = _batched_start(base, tscale.to(dtype))
+    columns = lambda w1: w1.view(N_IN, 8, N_HIDDEN).permute(1, 0, 2)  # noqa: E731
+    assert torch.equal(columns(wide.w1), batched.w1)
+    assert all(torch.equal(a, b) for a, b in zip(wide[1:], batched[1:]))
+    new, loss = mlp.sgd_step(batched, tx, ty, tlr)
+    z = torch.empty((n_rows, 8 * N_HIDDEN), dtype=dtype)
+    wide_loss = mlp.wide_sgd_step(wide, tx, ty, tlr, z)
+    for got, want in zip((columns(wide.w1), *wide[1:]), new):
+        _close(got, want, WIDE_ATOL[dtype])
+    _close(wide_loss, loss, WIDE_ATOL[dtype])
+
+
+def test_train_scaled_batch_takes_the_head_on_the_index_loss_only(monkeypatch):
+    calls = []
+    for name in ("head_step", "head_loss"):
+        monkeypatch.setattr(mlp_head, name, lambda *a, _f=getattr(mlp_head, name), _n=name: calls.append(_n) or _f(*a))
+    x, y, init = _problem()
+    lr, scale = (torch.from_numpy(a) for a in _draws(8))
+    base = mlp.mlp_params_from_numpy(init, "cpu")
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    mlp.train_scaled_batch(base, tx, ty, lr, scale, N_STEPS)
+    assert calls == ["head_step"] * N_STEPS + ["head_loss"]
+    calls.clear()
+    mlp.train_scaled_batch(base, tx, torch.eye(N_OUT)[ty.long()], lr, scale, N_STEPS, mlp.cross_entropy_onehot)
+    assert calls == []
+
+
+def _head_operands(n: int, trials: int, device):
+    """The head's operands as the wide trainer makes them: ``X @ W1`` of
+    ``trials`` scaled copies of config #5's network (784 inputs, hidden 32,
+    biases made nonzero), labels in [0, 10), rates log-uniform in [1e-3, 1]."""
+    x, y, init = _problem(784, 32, 10, n)
+    lr, scale = _draws(trials)
+    base = mlp.mlp_params_from_numpy(init, device)
+    base = base._replace(b1=base.b1 + 0.05, b2=base.b2 - 0.02)
+    p = mlp.wide_params(base, torch.from_numpy(scale).to(device))
+    z = torch.from_numpy(x).to(device) @ p.w1
+    return z, p.b1, p.w2, p.b2, torch.from_numpy(y).to(device).long(), torch.from_numpy(lr).to(device)
+
+
+@pytest.mark.cuda
+def test_head_kernel_matches_its_plain_version_on_the_card(cuda_device):
+    """At B = 256, hidden 32 and N = 2 chunks and 101 rows (the last chunk's
+    last tile part-filled): the loss alone, one step's losses and gradients
+    and ``lr * dH`` over ``z``."""
+    n = 2 * mlp_head.CHUNK_ROWS + 101
+    z, b1, w2, b2, labels, lr = _head_operands(n, 256, cuda_device)
+    before = mlp_head.LAUNCHES
+    out = {}
+    for label, dtype, step, loss in (
+        ("kernel", torch.float32, mlp_head.head_step, mlp_head.head_loss),
+        ("plain", torch.float32, mlp_head.head_step_plain, mlp_head.head_loss_plain),
+        ("f64", torch.float64, mlp_head.head_step_plain, mlp_head.head_loss_plain),
+    ):
+        zz = z.to(dtype, copy=True)
+        ops = [t.to(dtype) for t in (b1, w2, b2)]
+        alone = loss(zz, *ops, labels)
+        grads = step(zz, *ops, labels, lr.to(dtype))
+        out[label] = [alone, *grads, zz]
+    assert mlp_head.LAUNCHES - before == 2
+    names = ["loss alone", "loss", "w2", "b2", "b1", "lr * dH"]
+    for name, kernel, plain, ref in zip(names, *out.values()):
+        assert torch.isfinite(kernel).all(), name
+        scale = ref.abs().max()
+        for got in (kernel, plain):
+            assert float((got.double() - ref).abs().max() / scale) <= HEAD_TOL, name
+
+
+@pytest.mark.cuda
+def test_config5_on_the_card_launches_the_head_once_a_step_and_for_the_loss(cuda_device):
+    x, y, init = _problem(784, 32, 10, 256)
+    lr, scale = (torch.from_numpy(a).to(cuda_device) for a in _draws(256))
+    tx, ty = torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device)
+    base = mlp.mlp_params_from_numpy(init, cuda_device)
+    calls = (
+        (N_STEPS + 1, lambda: mlp.train_scaled_batch(base, tx, ty, lr, scale, N_STEPS)),
+        (0, lambda: mlp.train_scaled_batch(
+            base, tx, torch.eye(10, device=cuda_device)[ty.long()], lr, scale, N_STEPS, mlp.cross_entropy_onehot)),
+        (0, lambda: mlp.train_scaled_batch(
+            mlp.MLPParams(*(p.double() for p in base)), tx.double(), ty, lr, scale, N_STEPS)),
+    )
+    for want, call in calls:
+        before = mlp_head.LAUNCHES
+        assert torch.isfinite(call()).all()
+        assert mlp_head.LAUNCHES - before == want
